@@ -5,14 +5,19 @@ Run from the repository root: `python3 chip_smoke.py` (one GPU; `nvcc`
 under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 1. env      — GPU name and power limit, torch/CUDA versions, and the build
-              of the three kernels from `cvpr23_lfdm_torch/csrc/` (one
+              of the four kernel sources in `cvpr23_lfdm_torch/csrc/` (one
               `nvcc` per source, started together).
 2. kernel   — each kernel against its plain PyTorch version at every shape
-              the serving path gives it, in bf16 and in fp32 (TF32 off),
-              with its tolerance; median CUDA-event times of the kernel, the
-              plain version and, for the warp, `F.grid_sample` (bf16); the
-              least time the card could take (bytes / 3.35 TB/s or
-              FLOPs / 989 TFLOP/s bf16, whichever is larger).
+              the serving path (fused layers, warp) or the training step
+              (head-packed attention, forward and backward, B=5) gives it,
+              in bf16 and in fp32 (TF32 off), with its tolerance; median
+              CUDA-event times of the kernel, the plain version and one
+              library call (`F.grid_sample` for the warp,
+              `F.scaled_dot_product_attention` and its autograd backward on
+              pre-rotated q, k, v for the head-packed pair; bf16; timed
+              here, used nowhere in the port); the least time the card
+              could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s bf16,
+              whichever is larger).
 3. serving  — the MUG serving path at full width on the bench checkpoint
               (128² frames, 40 frames, DDIM-10, B=1, cond_scale 1, bf16
               compute): output shapes, finite values, `out_vid` in [0, 1],
@@ -27,10 +32,29 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 5. profile  — one serving video under torch.profiler: device time by
               kernel and its share of the serving latency; the full table
               goes to `chip_smoke_out/profile_serving.json`.
+6. train    — `DMTrainer.train_step` at the full width of the MUG config
+              (UNet dim 64, mults (1,2,4,8), 8x32 heads, 40 frames, 128²,
+              bf16 UNet compute, fp32 LFAE, B=5, lr 2e-4): UNet and
+              generator encoder from the bench checkpoint, region /
+              background / pixelwise-flow weights and the batch from a
+              seed. Two warm-up steps, five timed steps on one fixed
+              (batch, t, noise), one of them with the launch counters set
+              to 0 before and read after (10 forward and 10 backward
+              head-packed launches, no fused serving launch), one
+              monitoring step; gates on finite loss and gradient norm, a
+              finite, not-all-zero gradient for every trainable parameter,
+              and moved parameters; then the step's parts timed with CUDA
+              events and one step under torch.profiler
+              (`chip_smoke_out/profile_train.json`).
+7. train parity — one fp32 step (B=2) from the same weights, t and noise
+              with the kernels and with the plain versions on the card:
+              loss, gradient norm and the largest parameter-gradient
+              difference; and the kernel step run twice gives bit-identical
+              gradients.
 
-Then one `kernels` line (per kernel: launches in one video, and its time,
-plain time, bound and library time summed over the calls of one video),
-the `nvidia-smi` name/power-limit line, and last
+Then one `kernels` line (per kernel: launches in one serving video or one
+training step, and its time, plain time, bound and library time summed over
+those calls), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without that
 line.
 """
@@ -67,6 +91,12 @@ TOL = {  # elementwise |kernel - plain| <= atol + rtol * |plain|
     "bfloat16": {"atol": 3e-2, "rtol": 2e-2},
 }
 WARP_TOL = {"float32": {"atol": 1e-5, "rtol": 1e-5}, "bfloat16": {"atol": 1e-2, "rtol": 1e-2}}
+# head-packed attention per training step: HW -> calls per UNet evaluation
+HEADPACKED_SHAPES = {1024: 3, 256: 2, 64: 2, 16: 3}
+TRAIN_BATCH = 5
+# dbias sums ds over all HW pixels in fp32: the same terms in another order
+DBIAS_TOL = {"float32": {"atol": 2e-3, "rtol": 1e-3}, "bfloat16": {"atol": 0.5, "rtol": 5e-2}}
+TRAIN_PARITY_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_max_abs_rel": 2e-3}
 PATH_TOL = 2e-3    # fp32 serving path, kernels vs plain, max-abs
 GOLDEN_TOL = 5e-3  # fp32 serving path on the card vs the JAX package on a CPU
 
@@ -239,19 +269,22 @@ def check_kernels(failures: list) -> dict:
 
 @contextlib.contextmanager
 def plain_ops():
-    """Test hook for the parity phase: route the three ops to their plain
+    """Test hook for the parity phases: route the ops to their plain
     versions for the duration of one run (the port itself has no switch)."""
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import warp as W
 
-    saved = (A.fused_temporal_layer, A.fused_spatial_linear_layer, W.warp_video)
+    saved = (A.fused_temporal_layer, A.fused_spatial_linear_layer, W.warp_video,
+             A.headpacked_temporal_attention)
     A.fused_temporal_layer = A.fused_temporal_layer_plain
     A.fused_spatial_linear_layer = A.fused_spatial_linear_layer_plain
     W.warp_video = W.warp_video_plain
+    A.headpacked_temporal_attention = A.headpacked_temporal_attention_plain
     try:
         yield
     finally:
-        A.fused_temporal_layer, A.fused_spatial_linear_layer, W.warp_video = saved
+        (A.fused_temporal_layer, A.fused_spatial_linear_layer, W.warp_video,
+         A.headpacked_temporal_attention) = saved
 
 
 def counters() -> dict:
@@ -260,7 +293,9 @@ def counters() -> dict:
 
     return {"fused_temporal_layer": A.fused_temporal_layer.launches,
             "fused_spatial_linear_layer": A.fused_spatial_linear_layer.launches,
-            "warp_video": W.warp_video.launches}
+            "warp_video": W.warp_video.launches,
+            "headpacked_attention_fwd": A.headpacked_temporal_attention.launches,
+            "headpacked_attention_bwd": A.headpacked_temporal_attention.backward_launches}
 
 
 def reset_counters() -> None:
@@ -270,6 +305,8 @@ def reset_counters() -> None:
     A.fused_temporal_layer.launches = 0
     A.fused_spatial_linear_layer.launches = 0
     W.warp_video.launches = 0
+    A.headpacked_temporal_attention.launches = 0
+    A.headpacked_temporal_attention.backward_launches = 0
 
 
 def serving_model(dtype: str, frames: int = F_FRAMES):
@@ -300,7 +337,7 @@ def injected_noise(cfg, seed: int):
     return torch.from_numpy(init).cuda(), torch.from_numpy(noise).cuda()
 
 
-def run_serving(failures: list, timed_runs: int = 5) -> tuple[dict, float]:
+def run_serving(failures: list, timed_runs: int = 3) -> tuple[dict, float]:
     import torch
 
     cfg, model, cond, ref, meta = serving_model("bfloat16")
@@ -313,7 +350,7 @@ def run_serving(failures: list, timed_runs: int = 5) -> tuple[dict, float]:
     torch.cuda.synchronize()
     launches = counters()
     want = {"fused_temporal_layer": 10 * DDIM_STEPS, "fused_spatial_linear_layer": 8 * DDIM_STEPS,
-            "warp_video": 3}
+            "warp_video": 3, "headpacked_attention_fwd": 0, "headpacked_attention_bwd": 0}
     shapes = {k: list(v.shape) for k, v in out.items()}
     ov = out["out_vid"]
     s, h = cfg.diffusion.img_size, cfg.lfae.frame_shape
@@ -394,17 +431,8 @@ def run_profile(latency_s: float) -> None:
         model.sample_video(ref, cond, 1.0, generator=gen)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3, "count": ev.count})
-    rows.sort(key=lambda r: -r["device_ms"])
-    # device activity only: `aten::` operator rows repeat the time of the
-    # kernels they launch, and `cuda*` rows are runtime API calls
-    device = [r for r in rows if not r["name"].startswith(("aten::", "cuda"))]
+    rows = profile_rows(prof)
+    device = [r for r in rows if r["on_device"]]
     busy = sum(r["device_ms"] for r in device)
     report = {"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy,
               "serving_latency_ms": latency_s * 1e3,
@@ -415,6 +443,346 @@ def run_profile(latency_s: float) -> None:
         json.dump({**report, "all": rows}, f, indent=1)
     emit({**report, "top": device[:12]})
     del model
+
+
+# ---------------------------------------------------------------- training
+
+
+def check_headpacked(failures: list) -> dict:
+    """The head-packed attention kernels against the plain forward and
+    backward at the training step's shapes; per-kernel totals over the
+    calls of one step (bf16 times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvpr23_lfdm_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    names = ("headpacked_attention_fwd", "headpacked_attention_bwd")
+    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                  "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0} for n in names}
+    hd = HEADS * DH
+    b, f = TRAIN_BATCH, F_FRAMES
+    pos_bias = randn(HEADS, f, f)
+
+    def run(fn, qkv, bias, cos_t, sin_t, do):
+        q, bb = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
+        out = fn(q, bb, cos_t, sin_t, HEADS, DH)
+        out.backward(do)
+        return out.detach(), q.grad, bb.grad
+
+    def emit_case(hw, dname, tag, res, times, bounds, per_step):
+        for name in names:
+            r = res[name]
+            line = {"phase": "kernel", "name": name, "shape": [b, f, hw, 3 * hd] + tag,
+                    "dtype": dname, **r}
+            if not (r["ok"] and r["finite"]):
+                failures.append(f"{name} {hw} {dname} {tag}")
+            if times is not None:
+                nbytes, flops = bounds[name]
+                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+                line.update(times[name], bound_ms=b_ms, bound_by=b_by, calls_per_step=per_step)
+                t = totals[name]
+                for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms")):
+                    t[key] += per_step * times[name][src]
+                t["bound_ms"] += per_step * b_ms
+                t["bytes"] += per_step * nbytes
+                t["flops"] += per_step * flops
+                t["max_abs_err"] = max(t["max_abs_err"], r["max_abs_err"])
+            emit(line)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        timed = dtype == torch.bfloat16
+        esz = 2 if timed else 4
+        cos_t, sin_t = A.rotary_tables(f, HEADS, DH, DH ** -0.5, dtype, dev)
+        cases = [(hw, n, False) for hw, n in HEADPACKED_SHAPES.items()] + [(256, 0, True)]
+        for hw, per_step, focus in cases:
+            qkv = randn(b, f, hw, 3 * hd).to(dtype)
+            do = randn(b, f, hw, hd).to(dtype)
+            mask = torch.tensor([True, False, True, False, False], device=dev) if focus else None
+            bias = A.build_bias_flat(pos_bias, b, f, mask)
+            out, dq, db = run(A.headpacked_temporal_attention, qkv, bias, cos_t, sin_t, do)
+            pout, pdq, pdb = run(A.headpacked_temporal_attention_plain, qkv, bias, cos_t, sin_t, do)
+            res = {names[0]: compare(out, pout, TOL[dname]),
+                   names[1]: compare(dq, pdq, TOL[dname])}
+            dbias = compare(db, pdb, DBIAS_TOL[dname])
+            res[names[1]].update(dbias_max_abs_err=dbias["max_abs_err"], dbias_tol=DBIAS_TOL[dname],
+                                 ok=res[names[1]]["ok"] and dbias["ok"],
+                                 finite=res[names[1]]["finite"] and dbias["finite"])
+            del pout, pdq, pdb, out, dq, db
+            times = bounds = None
+            if timed and not focus:
+                units = b * hw * HEADS
+                bounds = {names[0]: (b * f * hw * 4 * hd * esz + bias.numel() * 4, units * 4 * f * f * DH),
+                          names[1]: (b * f * hw * 7 * hd * esz + 2 * bias.numel() * 4, units * 10 * f * f * DH)}
+                # kernel and plain: forward alone; backward alone on a kept graph
+                def timer(fn, reps):
+                    q, bb = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
+                    with torch.no_grad():
+                        fwd = median_ms(lambda: fn(q, bb, cos_t, sin_t, HEADS, DH), reps=reps)
+                    o = fn(q, bb, cos_t, sin_t, HEADS, DH)
+                    bwd = median_ms(lambda: torch.autograd.grad(o, (q, bb), do, retain_graph=True), reps=reps)
+                    return fwd, bwd
+                k_fwd, k_bwd = timer(A.headpacked_temporal_attention, 10)
+                p_fwd, p_bwd = timer(A.headpacked_temporal_attention_plain, 3)
+                # library yardstick: SDPA on pre-rotated q, k, v [B*HW, heads, F, d],
+                # the bias as an additive mask (the q-scale is in q already)
+                with torch.no_grad():
+                    x = qkv.float()
+                    blk = (x * cos_t.float()[None, :, None]
+                           + A.rotate_pairs(x) * sin_t.float()[None, :, None]).to(dtype)
+                    q4, k4, v4 = (blk[..., i * hd:(i + 1) * hd].reshape(b, f, hw, HEADS, DH)
+                                  .permute(0, 2, 3, 1, 4).reshape(b * hw, HEADS, f, DH).contiguous()
+                                  for i in range(3))
+                    m4 = (bias.reshape(b, 1, f, HEADS, f).permute(0, 1, 3, 2, 4)
+                          .expand(b, hw, HEADS, f, f).reshape(b * hw, HEADS, f, f).to(dtype).contiguous())
+                    do4 = do.reshape(b, f, hw, HEADS, DH).permute(0, 2, 3, 1, 4).reshape(
+                        b * hw, HEADS, f, DH).contiguous()
+                    del x, blk
+                    l_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=m4, scale=1.0), reps=10)
+                qg, kg, vg = (t.requires_grad_() for t in (q4, k4, v4))
+                o4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4, scale=1.0)
+                l_bwd = median_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True),
+                                  reps=10)
+                lib_err = float((o4.detach().permute(0, 2, 1, 3).reshape(b, hw, f, hd).transpose(1, 2).float()
+                                 - A.headpacked_temporal_attention(qkv, bias, cos_t, sin_t, HEADS, DH).float()
+                                 ).abs().max())
+                del o4, qg, kg, vg, q4, k4, v4, m4, do4
+                times = {names[0]: {"kernel_ms": k_fwd, "plain_ms": p_fwd, "library_ms": l_fwd,
+                                    "library_max_abs_diff": lib_err},
+                         names[1]: {"kernel_ms": k_bwd, "plain_ms": p_bwd, "library_ms": l_bwd}}
+            emit_case(hw, dname, ["focus"] if focus else [], res, times, bounds, per_step)
+            torch.cuda.empty_cache()
+    return totals
+
+
+def training_setup(dtype: str, batch: int, seed: int = 0):
+    """The MUG trainer at full width on the bench checkpoint (UNet and
+    generator encoder; seeded motion modules), a seeded batch and one fixed
+    draw of (t, noise, null mask)."""
+    import dataclasses
+
+    import torch
+
+    from cvpr23_lfdm_torch.config import mug_config
+    from cvpr23_lfdm_torch.train.dm_trainer import DMTrainer
+    from cvpr23_lfdm_torch.utils.bench_ckpt import apply_bench_ckpt
+
+    cfg = mug_config()
+    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, compute_dtype=dtype))
+    cfg, model, _, _, meta = apply_bench_ckpt(
+        os.path.join(ROOT, "assets", "bench_ckpt"), cfg, training=True, lfae_seed=seed)
+    trainer = DMTrainer(cfg, steps_per_epoch=93, model=model)
+    rng = np.random.RandomState(seed + 1)
+    d, s = cfg.diffusion, cfg.lfae.frame_shape
+    vid = rng.uniform(size=(batch, d.num_frames, s, s, 3)).astype(np.float32)
+    data = {"ref_img": vid[:, 0].copy(), "real_vid": vid,
+            "cond": rng.standard_normal((batch, d.cond_dim)).astype(np.float32),
+            "none_cond_mask": np.zeros(batch, bool)}
+    data = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    draws = {
+        "t": torch.from_numpy(rng.randint(0, d.timesteps, size=batch)).cuda(),
+        "noise": torch.from_numpy(rng.standard_normal(
+            (batch, d.num_frames, d.img_size, d.img_size, 3)).astype(np.float32)).cuda(),
+        "null_mask": torch.from_numpy(rng.uniform(size=batch) < d.null_cond_prob).cuda(),
+    }
+    return cfg, trainer, data, draws, meta
+
+
+def run_training(failures: list) -> tuple[dict, float]:
+    import torch
+
+    batch = TRAIN_BATCH
+    cfg, trainer, data, draws, meta = training_setup("bfloat16", batch)
+    unet = trainer.model.unet
+    before = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    state = trainer.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    losses, grad_norms, secs = [], [], []
+    launches = None
+    for i in range(7):  # 2 warm-up + 5 timed; the first timed step is the counted one
+        if i == 2:
+            reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, None, data, **draws)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i == 2:
+            launches = counters()
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+        if i >= 2:
+            secs.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad_grads = [n for n, p in unet.named_parameters() if p.requires_grad and (
+        p.grad is None or not torch_isfinite(p.grad) or float(p.grad.abs().max()) == 0.0)]
+    unmoved = [n for n, p in unet.named_parameters() if torch.equal(p.detach(), before[n])]
+    want = {"fused_temporal_layer": 0, "fused_spatial_linear_layer": 0, "warp_video": 1,
+            "headpacked_attention_fwd": 10, "headpacked_attention_bwd": 10}
+    checks = {
+        "finite": bool(np.isfinite(losses).all() and np.isfinite(grad_norms).all()),
+        "launches_ok": launches == want,
+        "every_parameter_has_a_gradient": not bad_grads,
+        "parameters_moved": not unmoved,
+        "null_cond_emb_only_if_learned": hasattr(unet, "null_cond_emb") == cfg.diffusion.learn_null_cond,
+    }
+    med = float(np.median(secs))
+    emit({"phase": "train", "config": "mug", "objective": meta["objective"], "dtype": "bfloat16",
+          "lfae_dtype": cfg.lfae.compute_dtype, "batch": batch, "frames": F_FRAMES,
+          "lr": cfg.dm_train.lr, "betas": list(cfg.dm_train.adam_betas),
+          "launches_per_step": launches, "launches_expected": want, **checks,
+          "bad_grads": bad_grads[:5], "unmoved": unmoved[:5],
+          "loss_fixed_batch_7_steps": losses, "grad_norm_7_steps": grad_norms,
+          "step_s": secs, "median_step_s": med, "videos_per_s": batch / med,
+          "peak_mem_gb": peak, "gpu": gpu_line()})
+    for k, v in checks.items():
+        if not v:
+            failures.append(f"train {k}")
+
+    # one monitoring step: adds the decode of the predicted x0 (3 warps) and
+    # the pseudo-ground-truth reconstruction (3 warps)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, None, data, with_monitoring=True, **draws)
+    torch.cuda.synchronize()
+    mon = {"phase": "train", "what": "monitoring step", "step_s": time.perf_counter() - t0,
+           "launches": counters(), "rec_loss": float(m["rec_loss"]),
+           "rec_warp_loss": float(m["rec_warp_loss"]), "loss": float(m["loss"])}
+    mon["ok"] = bool(np.isfinite([mon["rec_loss"], mon["rec_warp_loss"], mon["loss"]]).all()
+                     and mon["launches"]["warp_video"] == 7
+                     and mon["launches"]["headpacked_attention_fwd"] == 10)
+    emit(mon)
+    if not mon["ok"]:
+        failures.append("train monitoring step")
+
+    train_breakdown(trainer, data, draws, med)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, med
+
+
+def train_breakdown(trainer, data, draws, step_s: float) -> None:
+    """Where one step's time goes: its parts timed with CUDA events (a
+    synchronise between parts), then one step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvpr23_lfdm_torch.train.dm_trainer import DMTrainState
+
+    model = trainer.model
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    parts = {k: [] for k in ("pseudo_gt_ms", "unet_forward_loss_ms", "backward_ms", "adam_ms")}
+    for _ in range(3):
+        trainer.optimizer.zero_grad()
+        gt, ms = timed(lambda: model.pseudo_ground_truth(data["ref_img"], data["real_vid"], with_decode=False))
+        parts["pseudo_gt_ms"].append(ms)
+        x_start = model.encode_latent(gt["vid_grid"], gt["vid_conf"])
+        (loss, _), ms = timed(lambda: model.diffusion.p_losses(
+            model.denoise, x_start, gt["ref_fea"], data["cond"], data["none_cond_mask"], **draws))
+        parts["unet_forward_loss_ms"].append(ms)
+        _, ms = timed(loss.backward)
+        parts["backward_ms"].append(ms)
+        _, ms = timed(lambda: trainer.optimizer.step(0))
+        parts["adam_ms"].append(ms)
+    line = {"phase": "train", "what": "parts of one step (CUDA events, median of 3)",
+            **{k: float(np.median(v)) for k, v in parts.items()}, "median_step_ms": step_s * 1e3}
+    emit(line)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(DMTrainState(step=0), None, data, **draws)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = profile_rows(prof)
+    device = [r for r in rows if r["on_device"]]
+    busy = sum(r["device_ms"] for r in device)
+    report = {"phase": "profile", "what": "one training step", "wall_ms": wall_ms,
+              "device_busy_ms": busy, "step_ms": step_s * 1e3,
+              "device_busy_share": busy / (step_s * 1e3), "top": device[:25]}
+    os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chip_smoke_out", "profile_train.json"), "w") as f:
+        json.dump({**report, "all": rows}, f, indent=1)
+    emit({**report, "top": device[:14]})
+
+
+def profile_rows(prof) -> list:
+    """Rows with device time, largest first. `on_device` marks device
+    activity (kernels, copies); the other rows are operators, autograd
+    nodes and runtime calls, which repeat the time of what they launch."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3, "count": ev.count,
+                         "on_device": getattr(ev, "device_type", None) == DeviceType.CUDA})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def run_train_parity(failures: list) -> None:
+    """One fp32 step (B=2) with the kernels and with the plain versions from
+    the same weights and draws; and the kernel step twice, bit for bit."""
+    import torch
+
+    from cvpr23_lfdm_torch.train.dm_trainer import DMTrainState
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        _, trainer, data, draws, _ = training_setup("float32", 2, seed=3)
+        weights = {k: v.detach().clone() for k, v in trainer.model.unet.state_dict().items()}
+
+        def step():
+            trainer.model.unet.load_state_dict(weights)
+            trainer.init_state()
+            _, m = trainer.train_step(DMTrainState(step=0), None, data, **draws)
+            grads = {n: p.grad.detach().clone() for n, p in trainer.model.unet.named_parameters()}
+            return float(m["loss"]), float(m["grad_norm"]), grads
+
+        loss_a, norm_a, grads_a = step()
+        loss_b, norm_b, grads_b = step()
+        with plain_ops():
+            loss_p, norm_p, grads_p = step()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    identical = loss_a == loss_b and all(torch.equal(grads_a[n], grads_b[n]) for n in grads_a)
+    scale = max(float(g.abs().max()) for g in grads_p.values())
+    worst = max(float((grads_a[n] - grads_p[n]).abs().max()) for n in grads_a)
+    tol = TRAIN_PARITY_TOL
+    line = {"phase": "train parity", "what": "fp32 step, kernels vs plain on the card", "batch": 2,
+            "loss": loss_a, "loss_plain": loss_p, "grad_norm": norm_a, "grad_norm_plain": norm_p,
+            "grad_max_abs_diff": worst, "grad_max_abs": scale, "tol": tol,
+            "bit_identical_twice": bool(identical)}
+    line["ok"] = bool(
+        abs(loss_a - loss_p) <= tol["loss_rel"] * abs(loss_p)
+        and abs(norm_a - norm_p) <= tol["grad_norm_rel"] * norm_p
+        and worst <= tol["grad_max_abs_rel"] * scale and identical)
+    emit(line)
+    if not line["ok"]:
+        failures.append("train parity")
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -438,7 +806,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = ["fused_temporal_layer", "fused_spatial_linear_layer", "warp_video"]
-    built = _build.build(names)
+    built = _build.build(names + ["headpacked_attention"])
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in built["logs"].items()}
     emit({"phase": "env", "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
@@ -448,29 +816,40 @@ def main() -> int:
 
     failures: list[str] = []
     totals = check_kernels(failures)
+    totals.update(check_headpacked(failures))
     launches, latency_s = run_serving(failures)
     run_parity(failures)
     run_profile(latency_s)
+    train_launches, step_s = run_training(failures)
+    run_train_parity(failures)
 
     source = {"fused_temporal_layer": "cvpr23_lfdm_torch/csrc/fused_temporal_layer.cu",
               "fused_spatial_linear_layer": "cvpr23_lfdm_torch/csrc/fused_spatial_linear_layer.cu",
-              "warp_video": "cvpr23_lfdm_torch/csrc/warp_video.cu"}
+              "warp_video": "cvpr23_lfdm_torch/csrc/warp_video.cu",
+              "headpacked_attention_fwd": "cvpr23_lfdm_torch/csrc/headpacked_attention.cu",
+              "headpacked_attention_bwd": "cvpr23_lfdm_torch/csrc/headpacked_attention.cu"}
     replaces = {"fused_temporal_layer": "cvpr23_lfdm_tpu/ops/attention_pallas.py:590",
                 "fused_spatial_linear_layer": "cvpr23_lfdm_tpu/ops/attention_pallas.py:745",
-                "warp_video": "cvpr23_lfdm_tpu/ops/warp_pallas.py:440"}
+                "warp_video": "cvpr23_lfdm_tpu/ops/warp_pallas.py:440",
+                "headpacked_attention_fwd": "cvpr23_lfdm_tpu/ops/attention_pallas.py:311",
+                "headpacked_attention_bwd": "cvpr23_lfdm_tpu/ops/attention_pallas.py:366"}
     kernels = []
-    for name in names:
+    train_names = ["headpacked_attention_fwd", "headpacked_attention_bwd"]
+    for name in names + train_names:
         t = totals[name]
+        on_train = name in train_names
         # the sum of the per-call bounds, named by the larger side of the sums
         b_by = bound(t["bytes"], t["flops"], FP32_FLOPS if name == "warp_video" else BF16_FLOPS)[1]
         b_ms = t["bound_ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": source[name], "replaces": replaces[name],
-            "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "launches": (train_launches if on_train else launches)[name],
+            "per": "training step" if on_train else "serving video", "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t["library_ms"],
         })
-    emit({"kernels": kernels, "per": "one serving video (sums over its calls, bf16)",
+    emit({"kernels": kernels,
+          "per": "one serving video (B=1) or one training step (B=5): sums over its calls, bf16",
           "total_s": time.perf_counter() - t0})
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)

@@ -2,10 +2,13 @@
 
 A copy of `cvpr23_lfdm_tpu/config.py` (the port imports nothing of the JAX
 package), so both packages read the same presets. Knobs that only steer
-JAX code paths (`warp_impl`, `warp_tiled_max_res`, `temporal_attn_impl`,
-`sampler_unroll`) are kept for a field-for-field match and are ignored by
-the port: its decode warp is one exact kernel at every scale, and its
-attention layers always take the fused kernels on the card.
+JAX code paths (`warp_impl`, `warp_tiled_max_res`, `sampler_unroll`) are
+kept for a field-for-field match and are ignored by the port: its decode
+warp is one exact kernel at every scale. `temporal_attn_impl` keeps the JAX
+names: `"pallas3"` is the UNet's forward-only serving form (fused layers),
+`"pallas2"` its differentiable training form (head-packed kernel pair); any
+other value, the default `"xla"` included, lets the entry point choose
+(serving `pallas3`, training `pallas2`; `models/unet3d.py::resolve_attn_impl`).
 
 Replaces the reference's three stacked config mechanisms — YAML model
 configs (config/mug128.yaml), argparse path/seed flags, and
@@ -145,9 +148,10 @@ class DiffusionConfig:
     use_residual_flow: bool = False
     # mixed precision: UNet compute dtype (params/norms/softmax stay fp32)
     compute_dtype: str = "bfloat16"
-    # JAX-only knobs (see module docstring)
+    # "pallas3" | "pallas2" name a UNet form; anything else lets the entry
+    # point choose (see module docstring)
     temporal_attn_impl: str = "xla"
-    sampler_unroll: int = 1
+    sampler_unroll: int = 1  # JAX-only knob
 
 
 @dataclass(frozen=True)

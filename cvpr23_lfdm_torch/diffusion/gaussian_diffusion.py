@@ -1,12 +1,14 @@
-"""Gaussian diffusion samplers for serving (counterpart of
-`cvpr23_lfdm_tpu/diffusion/gaussian_diffusion.py`).
+"""Gaussian diffusion: the training loss and the DDPM/DDIM samplers
+(counterpart of `cvpr23_lfdm_tpu/diffusion/gaussian_diffusion.py`).
 
 The denoiser is an injected function `denoise(x, t, cond, null_cond_mask,
 fea) -> prediction` (eps / x0 / v per `objective`). Classifier-free
 guidance batches {cond, null} into one denoiser call; dynamic thresholding
 clips x0 to the per-sample 0.9-quantile of |x0| (min 1). The JAX scans are
 Python loops here. `init_img`/`noise_seq` inject the gaussians, otherwise
-they come from the given `torch.Generator`.
+they come from the given `torch.Generator`; `p_losses` likewise takes its
+timesteps, noise and null-condition dropout from the generator unless they
+are injected.
 
 Volumes are channel-last `[B, F, h, w, C]` (C = 3: 2 flow + 1 conf).
 """
@@ -45,8 +47,10 @@ class GaussianDiffusion:
     timesteps: int = 1000
     sampling_timesteps: int = 1000
     ddim_sampling_eta: float = 1.0
+    loss_type: str = "l2"
     use_dynamic_thres: bool = True
     dynamic_thres_percentile: float = 0.9
+    null_cond_prob: float = 0.1
     objective: str = "eps"
 
     @staticmethod
@@ -57,6 +61,8 @@ class GaussianDiffusion:
             timesteps=cfg.timesteps,
             sampling_timesteps=cfg.sampling_timesteps,
             ddim_sampling_eta=cfg.ddim_sampling_eta,
+            loss_type=cfg.loss_type,
+            null_cond_prob=cfg.null_cond_prob,
             use_dynamic_thres=cfg.use_dynamic_thres,
             dynamic_thres_percentile=cfg.dynamic_thres_percentile,
             objective=cfg.objective,
@@ -67,6 +73,21 @@ class GaussianDiffusion:
         return self.sampling_timesteps < self.timesteps
 
     # ---------------------------------------------------------------- x0 / eps
+
+    def q_sample(self, x_start, t, noise):
+        s = self.schedule
+        return (
+            _extract(s.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+            + _extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise
+        )
+
+    def predict_v(self, x_start, t, noise):
+        """v := sqrt(ab)*eps - sqrt(1-ab)*x0."""
+        s = self.schedule
+        return (
+            _extract(s.sqrt_alphas_cumprod, t, x_start.ndim) * noise
+            - _extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * x_start
+        )
 
     def predict_start_from_noise(self, x_t, t, noise):
         s = self.schedule
@@ -113,6 +134,64 @@ class GaussianDiffusion:
         else:
             raise NotImplementedError(self.objective)
         return x0, self.predict_noise_from_start(x_t, t, x0)
+
+    # ---------------------------------------------------------------- loss
+
+    def p_losses(self, denoise, x_start, fea, cond=None, none_cond_mask=None,
+                 t=None, noise=None, null_mask=None, generator=None):
+        """Training objective.
+
+        Args:
+          denoise: the denoiser (gradients flow through it).
+          x_start: `[B, F, h, w, 3]` latent flow volume in [-1, 1].
+          fea: `[B, h, w, Cf]` reference image feature (broadcast over F).
+          cond: `[B, cond_dim]` text embeddings.
+          none_cond_mask: `[B]` bool, True for "None" texts (forced null).
+          t, noise, null_mask: optional explicit timesteps `[B]`, gaussian
+            `x_start.shape` and null-condition dropout `[B]` bool; what is
+            missing is drawn from `generator` (t uniform in [0, T), dropout
+            with probability `null_cond_prob`).
+
+        Returns `(scalar loss, {"pred_x0": thresholded x0 estimate (detached),
+        "t": t})`.
+        """
+        b = x_start.shape[0]
+        device = x_start.device
+        if t is None:
+            t = torch.randint(0, self.timesteps, (b,), generator=generator, device=device)
+        if noise is None:
+            noise = _normal(x_start.shape, generator, device).to(x_start.dtype)
+        x_noisy = self.q_sample(x_start, t, noise)
+
+        if cond is None:
+            null_mask = None
+        else:
+            if null_mask is None:
+                null_mask = torch.rand(b, generator=generator, device=device) < self.null_cond_prob
+            if none_cond_mask is not None:
+                null_mask = null_mask | none_cond_mask
+
+        pred = denoise(x_noisy, t, cond, null_mask, fea[:, None])
+
+        if self.objective == "eps":
+            target = noise
+        elif self.objective == "x0":
+            target = x_start
+        elif self.objective == "v":
+            target = self.predict_v(x_start, t, noise)
+        else:
+            raise NotImplementedError(self.objective)
+
+        if self.loss_type == "l1":
+            loss = (target - pred).abs().mean()
+        elif self.loss_type == "l2":
+            loss = ((target - pred) ** 2).mean()
+        else:
+            raise NotImplementedError(self.loss_type)
+
+        with torch.no_grad():  # monitoring only: no graph through the threshold
+            pred_x0, _ = self._pred_to_x0_eps(x_noisy, t, pred.detach())
+        return loss, {"pred_x0": pred_x0, "t": t}
 
     # ---------------------------------------------------------------- CFG
 

@@ -126,3 +126,64 @@ class ResBlock2d(nn.Module):
         out = self.conv1(F.relu(self.norm1(x)))
         out = self.conv2(F.relu(self.norm2(out)))
         return (out + x).to(self.dtype or x.dtype)
+
+
+class Encoder(nn.Module):
+    """Hourglass encoder: a stack of DownBlocks; returns all scales (input
+    included), coarsest last."""
+
+    def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
+                 max_features: int = 256, dtype=None):
+        super().__init__()
+        self.num_blocks = num_blocks
+        cin = in_features
+        for i in range(num_blocks):
+            cout = min(max_features, block_expansion * (2 ** (i + 1)))
+            setattr(self, f"down_{i}", DownBlock2d(cin, cout, 3, dtype=dtype))
+            cin = cout
+
+    def forward(self, x) -> list[torch.Tensor]:
+        outs = [x]
+        for i in range(self.num_blocks):
+            outs.append(getattr(self, f"down_{i}")(outs[-1]))
+        return outs
+
+
+class Decoder(nn.Module):
+    """Hourglass decoder with skip concatenation; `out_filters` output
+    channels (`block_expansion + in_features`)."""
+
+    def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
+                 max_features: int = 256, dtype=None):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for j, i in enumerate(reversed(range(num_blocks))):
+            cin = (1 if i == num_blocks - 1 else 2) * min(
+                max_features, block_expansion * (2 ** (i + 1)))
+            cout = min(max_features, block_expansion * (2 ** i))
+            setattr(self, f"up_{j}", UpBlock2d(cin, cout, 3, dtype=dtype))
+        self.out_filters = block_expansion + in_features
+
+    def forward(self, feats) -> torch.Tensor:
+        feats = list(feats)
+        out = feats.pop()
+        for j in range(self.num_blocks):
+            out = getattr(self, f"up_{j}")(out)
+            skip = feats.pop()
+            dt = torch.promote_types(out.dtype, skip.dtype)
+            out = torch.cat([out.to(dt), skip.to(dt)], dim=-1)
+        return out
+
+
+class Hourglass(nn.Module):
+    """Encoder + decoder."""
+
+    def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
+                 max_features: int = 256, dtype=None):
+        super().__init__()
+        self.encoder = Encoder(block_expansion, in_features, num_blocks, max_features, dtype)
+        self.decoder = Decoder(block_expansion, in_features, num_blocks, max_features, dtype)
+        self.out_filters = self.decoder.out_filters
+
+    def forward(self, x) -> torch.Tensor:
+        return self.decoder(self.encoder(x))

@@ -1,9 +1,14 @@
-"""Warping generator, the LFAE decoder: its serving entry points.
+"""Warping generator, the LFAE decoder (counterpart of
+`cvpr23_lfdm_tpu/models/generator.py`), eval mode.
 
-Counterpart of `cvpr23_lfdm_tpu/models/generator.py` for `compute_fea`
-(encoder -> 1/4-res reference feature) and `decode_video_with_flow` (one
-encoder pass per video, then warps + decoder stack for all F frames).
-The pixelwise flow predictor is training-only and not part of serving.
+Serving entry points: `compute_fea` (encoder -> 1/4-res reference feature)
+and `decode_video_with_flow` (one encoder pass per video, then warps +
+decoder stack for all F frames). With a pixelwise flow predictor
+(`pixelwise_flow_params`), also the frozen forwards of DM training:
+`forward_flow_video` (encoder feature + dense flow/occlusion of all F
+frames, the pseudo-ground-truth of the diffusion loss), `forward_video`
+(the same plus the warped reconstruction, for monitoring), `forward` and
+`forward_with_flow` (single frame per source).
 
 Warp plan (as `Generator._decode_warp_stack` in the JAX package):
 * the one bottleneck-scale warp also serves the first up-skip;
@@ -22,6 +27,7 @@ from torch import nn
 from cvpr23_lfdm_torch.models.blocks import (
     Conv2d, DownBlock2d, ResBlock2d, SameBlock2d, UpBlock2d,
 )
+from cvpr23_lfdm_torch.models.pixelwise_flow import PixelwiseFlowPredictor
 from cvpr23_lfdm_torch.ops import warp as warp_ops
 from cvpr23_lfdm_torch.ops.resize import resize_bilinear
 
@@ -30,12 +36,19 @@ class Generator(nn.Module):
     def __init__(self, num_channels: int = 3, block_expansion: int = 64,
                  max_features: int = 512, num_down_blocks: int = 2,
                  num_bottleneck_blocks: int = 6, skips: bool = True,
-                 dtype=None):
+                 num_regions: int = 10, revert_axis_swap: bool = True,
+                 pixelwise_flow_params: dict | None = None, dtype=None):
         super().__init__()
         if not skips:
             raise NotImplementedError("the port's generator decodes with skips (all presets)")
         self.num_down_blocks = num_down_blocks
         self.num_bottleneck_blocks = num_bottleneck_blocks
+        self.pixelwise_flow_predictor = None
+        if pixelwise_flow_params is not None:
+            self.pixelwise_flow_predictor = PixelwiseFlowPredictor(
+                num_regions=num_regions, num_channels=num_channels,
+                revert_axis_swap=revert_axis_swap, **pixelwise_flow_params,
+            )
         self.first = SameBlock2d(num_channels, block_expansion, 7, dtype=dtype)
         cin = block_expansion
         for i in range(num_down_blocks):
@@ -65,6 +78,56 @@ class Generator(nn.Module):
     def compute_fea(self, source_image: torch.Tensor) -> torch.Tensor:
         """`[B, H, W, 3]` -> bottleneck feature `[B, H/4, W/4, 256]`."""
         return self._encode(source_image)[0]
+
+    def _predict_motion(self, source_image, driving_params, source_params, bg_params, frames):
+        if self.pixelwise_flow_predictor is None:
+            raise RuntimeError("this Generator was built without a pixelwise flow predictor")
+        return self.pixelwise_flow_predictor(
+            source_image, driving_params, source_params, bg_params, frames=frames)
+
+    def forward_flow_video(self, source_image, driving_params, source_params,
+                           bg_params=None, frames: int = 1) -> dict:
+        """Encoder bottleneck + dense flow/occlusion, without the warping
+        decoder. `source_image [B, H, W, 3]`; the parameter dicts carry
+        `B*frames` pair entries (every video's frames share its reference
+        frame), so the outputs are `[B*frames, h, w, .]`."""
+        motion = self._predict_motion(source_image, driving_params, source_params,
+                                      bg_params, frames)
+        return {
+            "bottle_neck_feat": self.compute_fea(source_image),
+            "optical_flow": motion["optical_flow"],
+            "occlusion_map": motion.get("occlusion_map"),
+        }
+
+    def forward_video(self, source_image, driving_params, source_params,
+                      bg_params=None, frames: int = 1) -> dict:
+        """:meth:`forward_flow_video` plus the warped reconstruction
+        (`prediction`, `deformed`: `[B*frames, H, W, 3]`)."""
+        bottleneck_feat, skip_feats = self._encode(source_image)
+        motion = self._predict_motion(source_image, driving_params, source_params,
+                                      bg_params, frames)
+        flow, occlusion = motion["optical_flow"], motion.get("occlusion_map")
+        prediction, deformed = self._decode_warp_stack(
+            bottleneck_feat, skip_feats, source_image, flow, occlusion, frames)
+        out = {"bottle_neck_feat": bottleneck_feat, "optical_flow": flow,
+               "prediction": prediction, "deformed": deformed}
+        if occlusion is not None:
+            out["occlusion_map"] = occlusion
+        return out
+
+    def forward(self, source_image, driving_params, source_params, bg_params=None) -> dict:
+        """Full forward with the internal flow predictor, one driving frame
+        per source."""
+        return self.forward_video(source_image, driving_params, source_params, bg_params, 1)
+
+    def forward_with_flow(self, source_image, optical_flow, occlusion_map=None) -> dict:
+        """Decode with an externally supplied flow `[B, h, w, 2]` and
+        occlusion `[B, h, w, 1]`."""
+        bottleneck_feat, skip_feats = self._encode(source_image)
+        prediction, deformed = self._decode_warp_stack(
+            bottleneck_feat, skip_feats, source_image, optical_flow, occlusion_map, 1)
+        return {"prediction": prediction, "deformed": deformed,
+                "bottle_neck_feat": bottleneck_feat}
 
     def decode_video_with_flow(self, source_image, optical_flow, occlusion_map=None) -> dict:
         """Args: `source_image [B, H, W, 3]`, `optical_flow [B, F, h, w, 2]`,

@@ -1,11 +1,23 @@
 """Conditional 3D UNet, the denoiser (counterpart of
-`cvpr23_lfdm_tpu/models/unet3d.py::Unet3D`), in its serving form.
+`cvpr23_lfdm_tpu/models/unet3d.py::Unet3D`), in a serving and a training
+form chosen by `temporal_attn_impl`, named as in the JAX package:
+
+* `"pallas3"`, the serving form (forward-only): every PreNorm
+  temporal-attention layer is one :func:`ops.attention.fused_temporal_layer`
+  and every PreNorm linear attention layer one
+  :func:`ops.attention.fused_spatial_linear_layer`.
+* `"pallas2"`, the training form (differentiable): `x + attn(LN(x))` with
+  the temporal attention as `to_qkv` ->
+  :func:`ops.attention.headpacked_temporal_attention` (forward and backward
+  kernels) -> `to_out`, and the linear attention unfused in plain PyTorch.
+
+Both forms have the same parameters, so one state dict loads into either.
+:func:`resolve_attn_impl` maps a config value to a form as the JAX CLIs'
+`resolve_attn_impl` does on a TPU: serving gets `pallas3`, training
+`pallas2`, unless the config names one of the two.
 
 Layout `[B, F, H, W, C]`; the "(1, k, k)" pseudo-3D convs are 2D convs over
-the folded `B*F` batch. Every PreNorm temporal-attention layer is one
-:func:`ops.attention.fused_temporal_layer` and every PreNorm linear
-attention layer one :func:`ops.attention.fused_spatial_linear_layer`, as
-the JAX package's `pallas3` serving impl. Module and parameter names follow
+the folded `B*F` batch. Module and parameter names follow
 the JAX variable tree. Parameters stay fp32; `dtype` is the compute dtype
 (bf16 for serving), with GroupNorm/LayerNorm statistics and softmax in fp32
 and the time/condition MLP and output heads in fp32, as in the JAX model.
@@ -25,6 +37,20 @@ from torch import nn
 
 from cvpr23_lfdm_torch.models.blocks import Conv2d, Dense
 from cvpr23_lfdm_torch.ops import attention as attn_ops
+
+
+ATTN_IMPLS = ("pallas2", "pallas3")
+
+
+def resolve_attn_impl(value: str, training: bool) -> str:
+    """The UNet form for a config's `temporal_attn_impl`: `pallas2` or
+    `pallas3` (an `_interpret` suffix is dropped) as named; any other value
+    (`xla`, `auto`, ...: the port has no einsum form) lets the entry point
+    choose: `pallas2` for training, `pallas3` for serving."""
+    for impl in ATTN_IMPLS:
+        if value.startswith(impl):
+            return impl
+    return "pallas2" if training else "pallas3"
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -93,19 +119,24 @@ class ChannelLayerNorm(nn.Module):
 
 
 class TemporalAttention(nn.Module):
-    """Attention over the frame axis, batched over pixels, as one fused
-    PreNorm layer (LN + qkv + rotary + attention + out-proj + residual)."""
+    """Attention over the frame axis, batched over pixels.
 
-    fused = True
+    `impl="pallas3"` (serving): the whole PreNorm layer (LN + qkv + rotary +
+    attention + out-proj + residual) is one forward-only fused kernel and
+    `forward` takes the raw `x` with `prenorm_gamma`. `impl="pallas2"`
+    (training): `to_qkv` -> differentiable head-packed attention kernel ->
+    `to_out` on the normalized input."""
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
+                 impl: str = "pallas3"):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.fused = impl == "pallas3"
         hidden = heads * dim_head
-        self.to_qkv = Dense(dim, 3 * hidden, bias=False)
-        self.to_out = Dense(hidden, dim, bias=False)
+        self.to_qkv = Dense(dim, 3 * hidden, bias=False, dtype=dtype)
+        self.to_out = Dense(hidden, dim, bias=False, dtype=dtype)
 
-    def forward(self, x, prenorm_gamma, pos_bias=None, focus_present_mask=None):
+    def forward(self, x, prenorm_gamma=None, pos_bias=None, focus_present_mask=None):
         b, f, h, w, c = x.shape
         cdt = self.dtype
         if pos_bias is None:
@@ -114,6 +145,11 @@ class TemporalAttention(nn.Module):
         cos_t, sin_t = attn_ops.rotary_tables(
             f, self.heads, self.dim_head, self.dim_head ** -0.5, cdt, x.device
         )
+        if not self.fused:
+            qkv = self.to_qkv(x).reshape(b, f, h * w, -1)
+            out = attn_ops.headpacked_temporal_attention(
+                qkv, bias_flat, cos_t, sin_t, self.heads, self.dim_head)
+            return self.to_out(out.reshape(b, f, h, w, -1))
         out = attn_ops.fused_temporal_layer(
             x.reshape(b, f, h * w, c).to(cdt).contiguous(),
             prenorm_gamma.float().contiguous(),
@@ -125,18 +161,43 @@ class TemporalAttention(nn.Module):
 
 
 class SpatialLinearAttention(nn.Module):
-    """Softmax-kernel linear attention per frame, as one fused PreNorm layer."""
+    """Softmax-kernel linear attention per frame: one forward-only fused
+    PreNorm layer (`impl="pallas3"`), or its differentiable unfused form in
+    plain PyTorch on the normalized input (training; it reaches no kernel)."""
 
-    fused = True
-
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
+                 impl: str = "pallas3"):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.fused = impl == "pallas3"
         hidden = heads * dim_head
-        self.to_qkv = Dense(dim, 3 * hidden, bias=False)
-        self.to_out = Dense(hidden, dim, bias=True)
+        self.to_qkv = Dense(dim, 3 * hidden, bias=False, dtype=dtype)
+        self.to_out = Dense(hidden, dim, bias=True, dtype=dtype)
 
-    def forward(self, x, prenorm_gamma):
+    def _unfused(self, x):
+        b, f, h, w, _ = x.shape
+        heads, d = self.heads, self.dim_head
+        dt = x.dtype
+        # exp and the normalizing divisions in the compute dtype, the max
+        # and the sums in fp32 (as the JAX model)
+        cdt = dt
+        tiny = torch.finfo(torch.float32).tiny
+        qkv = self.to_qkv(x).reshape(b, f, h * w, 3, heads, d)
+        q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        qf = q.float()
+        eq = torch.exp((qf - qf.amax(dim=-1, keepdim=True).detach()).to(cdt))
+        den = eq.float().sum(dim=-1, keepdim=True).clamp_min(tiny).to(cdt)
+        q = (eq / den).to(dt) * (d ** -0.5)
+        kf = k.float()
+        ek = torch.exp((kf - kf.amax(dim=2, keepdim=True).detach()).to(cdt))
+        k = (ek / ek.float().sum(dim=2, keepdim=True).to(cdt)).to(dt)
+        context = torch.einsum("bfnhd,bfnhe->bfhde", k, v)
+        out = torch.einsum("bfhde,bfnhd->bfnhe", context, q)
+        return self.to_out(out.reshape(b, f, h, w, heads * d))
+
+    def forward(self, x, prenorm_gamma=None):
+        if not self.fused:
+            return self._unfused(x)
         b, f, h, w, c = x.shape
         cdt = self.dtype
         out = attn_ops.fused_spatial_linear_layer(
@@ -155,7 +216,8 @@ class SpatialAttention(nn.Module):
 
     fused = False
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
+                 impl: str = "pallas3"):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
@@ -178,10 +240,11 @@ class SpatialAttention(nn.Module):
 class PreNormResidual(nn.Module):
     """x + attn(LN(x)); fused attention layers take the LN gamma instead."""
 
-    def __init__(self, dim: int, attn_cls, heads: int, dim_head: int, dtype=torch.float32):
+    def __init__(self, dim: int, attn_cls, heads: int, dim_head: int, dtype=torch.float32,
+                 impl: str = "pallas3"):
         super().__init__()
         self.norm = ChannelLayerNorm(dim)
-        self.attn = attn_cls(dim, heads, dim_head, dtype=dtype)
+        self.attn = attn_cls(dim, heads, dim_head, dtype=dtype, impl=impl)
 
     def forward(self, x, **kwargs):
         if self.attn.fused:
@@ -310,8 +373,12 @@ class Unet3D(nn.Module):
     def __init__(self, dim: int = 64, cond_dim: int = 768, dim_mults=(1, 2, 4, 8),
                  attn_heads: int = 8, attn_dim_head: int = 32, learn_null_cond: bool = False,
                  use_deconv: bool = True, use_final_activation: bool = False,
-                 dtype=torch.float32, fea_channels: int = 256):
+                 dtype=torch.float32, fea_channels: int = 256,
+                 temporal_attn_impl: str = "pallas3"):
         super().__init__()
+        if temporal_attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"temporal_attn_impl {temporal_attn_impl!r} not in {ATTN_IMPLS}")
+        impl = self.temporal_attn_impl = temporal_attn_impl
         self.dim, self.cond_dim, self.dtype = dim, cond_dim, dtype
         self.learn_null_cond = learn_null_cond
         self.use_final_activation = use_final_activation
@@ -320,7 +387,7 @@ class Unet3D(nn.Module):
         self.time_rel_pos_bias = RelativePositionBias(heads=heads, max_distance=32)
         self.init_conv = Conv2plus1d(3, dim, 7, dtype=dt)
         self.init_conv_fea = Conv2plus1d(fea_channels, dim, 7, dtype=dt, bias=False)
-        self.init_temporal_attn = PreNormResidual(dim, TemporalAttention, heads, attn_dim_head, dt)
+        self.init_temporal_attn = PreNormResidual(dim, TemporalAttention, heads, attn_dim_head, dt, impl)
         time_dim = dim * 4
         self.time_mlp_1 = Dense(dim, time_dim)
         self.time_mlp_2 = Dense(time_dim, time_dim)
@@ -335,23 +402,23 @@ class Unet3D(nn.Module):
             setattr(self, f"downs_{ind}_block1", ResnetBlock(din, dout, emb_dim, g, dt))
             setattr(self, f"downs_{ind}_block2", ResnetBlock(dout, dout, emb_dim, g, dt))
             setattr(self, f"downs_{ind}_spatial_attn",
-                    PreNormResidual(dout, SpatialLinearAttention, heads, 32, dt))
+                    PreNormResidual(dout, SpatialLinearAttention, heads, 32, dt, impl))
             setattr(self, f"downs_{ind}_temporal_attn",
-                    PreNormResidual(dout, TemporalAttention, heads, attn_dim_head, dt))
+                    PreNormResidual(dout, TemporalAttention, heads, attn_dim_head, dt, impl))
             if ind < n - 1:
                 setattr(self, f"downs_{ind}_downsample", Downsample(dout, dt))
         mid = dims[-1]
         self.mid_block1 = ResnetBlock(mid, mid, emb_dim, g, dt)
-        self.mid_spatial_attn = PreNormResidual(mid, SpatialAttention, heads, 32, dt)
-        self.mid_temporal_attn = PreNormResidual(mid, TemporalAttention, heads, attn_dim_head, dt)
+        self.mid_spatial_attn = PreNormResidual(mid, SpatialAttention, heads, 32, dt, impl)
+        self.mid_temporal_attn = PreNormResidual(mid, TemporalAttention, heads, attn_dim_head, dt, impl)
         self.mid_block2 = ResnetBlock(mid, mid, emb_dim, g, dt)
         for ind, (din, dout) in enumerate(reversed(self.in_out)):
             setattr(self, f"ups_{ind}_block1", ResnetBlock(dout * 2, din, emb_dim, g, dt))
             setattr(self, f"ups_{ind}_block2", ResnetBlock(din, din, emb_dim, g, dt))
             setattr(self, f"ups_{ind}_spatial_attn",
-                    PreNormResidual(din, SpatialLinearAttention, heads, 32, dt))
+                    PreNormResidual(din, SpatialLinearAttention, heads, 32, dt, impl))
             setattr(self, f"ups_{ind}_temporal_attn",
-                    PreNormResidual(din, TemporalAttention, heads, attn_dim_head, dt))
+                    PreNormResidual(din, TemporalAttention, heads, attn_dim_head, dt, impl))
             if ind < n - 1:
                 setattr(self, f"ups_{ind}_upsample", Upsample(din, use_deconv, dt))
         self.final_block = ResnetBlock(dim * 2, dim, None, g, dt)

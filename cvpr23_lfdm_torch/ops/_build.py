@@ -113,3 +113,15 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Forward-only kernels: raise rather than return a tensor without a
+    graph when a gradient is asked for."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only on a CUDA tensor: call it under torch.no_grad(), "
+            "or use its plain version or the training form for gradients")

@@ -1,4 +1,6 @@
-"""The UNet's two fused PreNorm attention layers: plain versions and kernels.
+"""The UNet's attention kernels: the two fused PreNorm layers of serving and
+the differentiable head-packed temporal attention of training, each with
+its plain version.
 
 Counterparts of `cvpr23_lfdm_tpu/ops/attention_pallas.py`:
 
@@ -9,8 +11,16 @@ Counterparts of `cvpr23_lfdm_tpu/ops/attention_pallas.py`:
   `fused_spatial_linear_layer` (`_fused_linear_kernel`): per-frame linear
   attention `x + W_out·linattn(W_qkv·LN(x)) + b`
   (`csrc/fused_spatial_linear_layer.cu`).
+* :func:`headpacked_temporal_attention` replaces the Pallas
+  `headpacked_temporal_attention` (`_headpacked_kernel` and its custom-VJP
+  backward `_headpacked_bwd_kernel`): rotary + softmax attention over the F
+  frames on the raw `to_qkv` output, a `torch.autograd.Function` whose
+  forward and backward are both kernels (`csrc/headpacked_attention.cu`).
 
-Both take `x [B, F, HW, C]` in bf16 (serving) or fp32, the LN gamma in
+The fused layers are forward-only (as in the JAX package): on a CUDA
+tensor they raise when a gradient is asked of them.
+
+Both fused layers take `x [B, F, HW, C]` in bf16 (serving) or fp32, the LN gamma in
 fp32, and the projection weights in `x`'s dtype. The plain versions repeat
 the Pallas kernels' arithmetic (fp32 LN statistics with var = E[x²]−mean²,
 fp32 matmul accumulation, rounding to the compute dtype at the same
@@ -37,6 +47,25 @@ head, not the TPU's masked 256×256 product). The second has one block per
 (batch, frame, 32 pixels): LN, the q projection and per-head q-softmax,
 `q·context`, the biased out-projection and the residual. It is bound by
 operations (the projections), like the temporal layer.
+
+`headpacked_temporal_attention` on the H100. The pair is bound by bytes:
+the forward reads qkv and writes the output, the backward reads qkv and
+`do` and writes `dqkv`; the products are ~0.2 (forward) and ~0.6 MFLOP
+(backward, recomputing the probabilities) per (pixel, head). A block of
+four warps owns one (pixel, head): its warps split the frames and load that
+head's q, k, v `[F, 32]` with lane = channel, rotate them (pair partner by
+shuffle, q-scale in the table), round to the compute dtype and keep them
+as fp32 rows in shared memory; then they split the query rows, lanes
+holding the keys for the scores and the softmax (a max per head) and the
+channels for the `p.v` sum. The backward keeps `do` there too, writes each
+`dq` row as it is finished, rounds `ds` and the probabilities into two
+`[F, F]` tiles, and after a block barrier splits the key columns for `dk`
+and `dv`; all three go out through the rotary adjoint, so `dqkv` is the
+gradient of the raw qkv. `dbias` sums over all pixels: a backward block
+walks a chunk of pixels of one (batch, head) in order, sums `ds` in its own
+`[F, F]` shared-memory tile and writes it out; a second launch adds the
+chunks in index order. No atomics, so a step's gradients
+are the same bit for bit from run to run.
 """
 
 from __future__ import annotations
@@ -80,7 +109,8 @@ def build_bias_flat(pos_bias: torch.Tensor, batch: int, f: int,
     max is 0, or NEG_INF off the frame diagonal for focused entries."""
     heads = pos_bias.shape[0]
     pos_bias = pos_bias.float()
-    pos_bias = pos_bias - pos_bias.amax(dim=-1, keepdim=True)
+    # the shift is a softmax-invariant constant: no gradient through the max
+    pos_bias = pos_bias - pos_bias.amax(dim=-1, keepdim=True).detach()
     flat = pos_bias.permute(1, 0, 2).reshape(f, heads * f)
     out = flat[None].expand(batch, f, heads * f)
     if focus_present_mask is not None:
@@ -197,6 +227,7 @@ def fused_temporal_layer(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
     hd = heads * dim_head
     _check_layer_args("fused_temporal_layer", x, gamma, wqkv, wout, hd,
                       (cos_t, sin_t), (bias_flat,))
+    _build.require_no_grad("fused_temporal_layer", x, gamma, wqkv, wout, bias_flat)
     if dim_head != 32 or f > 64:
         raise ValueError(f"fused_temporal_layer: needs d=32, F<=64 (d={dim_head}, F={f})")
     if tuple(bias_flat.shape) != (b, f, heads * f) or tuple(cos_t.shape) != (f, 3 * hd) \
@@ -234,6 +265,7 @@ def fused_spatial_linear_layer(x, gamma, wqkv, wout, bout,
     b, f, n, c = x.shape
     hd = heads * dim_head
     _check_layer_args("fused_spatial_linear_layer", x, gamma, wqkv, wout, hd, (), (bout,))
+    _build.require_no_grad("fused_spatial_linear_layer", x, gamma, wqkv, wout, bout)
     if dim_head != 32 or tuple(bout.shape) != (c,):
         raise ValueError("fused_spatial_linear_layer: needs d=32 and bout [C]")
     # per-head normalized contexts, the only intermediate in device memory
@@ -253,5 +285,195 @@ def fused_spatial_linear_layer(x, gamma, wqkv, wout, bout,
     return out
 
 
+# ------------------------------------------------ head-packed attention
+
+
+def _rotated_heads(qkv, cos_t, sin_t, heads, dim_head):
+    """fp32 rotary on the raw qkv, rounded to its dtype; q, k, v as fp32
+    `[B, F, HW, heads, d]` (fp64 stays fp64)."""
+    b, f, hw, _ = qkv.shape
+    hd = heads * dim_head
+    ft = torch.promote_types(qkv.dtype, torch.float32)
+    x = qkv.to(ft)
+    blk = (x * cos_t.to(ft)[None, :, None] + rotate_pairs(x) * sin_t.to(ft)[None, :, None])
+    blk = blk.to(qkv.dtype)
+    return tuple(blk[..., i * hd:(i + 1) * hd].reshape(b, f, hw, heads, dim_head).to(ft)
+                 for i in range(3))
+
+
+def _scores(q, k, bias_flat, heads):
+    """`[B, HW, heads, F(i), F(j)]` logits shifted by their row max (per head)."""
+    b, f = bias_flat.shape[:2]
+    s = torch.einsum("bixhd,bjxhd->bxhij", q, k)
+    s = s + bias_flat.to(q.dtype).reshape(b, f, heads, f).permute(0, 2, 1, 3)[:, None]
+    return s - s.amax(dim=-1, keepdim=True)
+
+
+def headpacked_forward_plain(qkv, bias_flat, cos_t, sin_t, heads: int, dim_head: int):
+    """Plain forward of :func:`headpacked_temporal_attention`: `exp` is
+    rounded to qkv's dtype before the numerator and the denominator sums,
+    the denominator is clamped at float32 tiny."""
+    b, f, hw, _ = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _rotated_heads(qkv, cos_t, sin_t, heads, dim_head)
+    e = torch.exp(_scores(q, k, bias_flat, heads)).to(dt).to(q.dtype)
+    num = torch.einsum("bxhij,bjxhd->bixhd", e, v)
+    den = e.sum(dim=-1).permute(0, 3, 1, 2)[..., None].clamp_min(_TINY)
+    return (num / den).to(dt).reshape(b, f, hw, heads * dim_head)
+
+
+def headpacked_backward_plain(qkv, bias_flat, cos_t, sin_t, do, heads: int, dim_head: int):
+    """Plain recompute-based backward: `(dqkv, dbias)` for the cotangent
+    `do [B, F, HW, heads*d]`. `dqkv` is the gradient of the raw qkv (rotary
+    adjoint applied), in qkv's dtype; `dbias [B, F, heads*F]` is summed
+    over all pixels. Rounds to qkv's dtype where the kernel does: the
+    probabilities' row sums, `prob·dp` before its row sum, `prob` for dv,
+    `ds` for dq and dk, and dk, dv before the adjoint."""
+    b, f, hw, _ = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _rotated_heads(qkv, cos_t, sin_t, heads, dim_head)
+    ft = q.dtype
+    rnd = lambda t: t.to(dt).to(ft)
+    e = torch.exp(_scores(q, k, bias_flat, heads))
+    prob = e / rnd(e).sum(dim=-1, keepdim=True).clamp_min(_TINY)
+    dof = do.reshape(b, f, hw, heads, dim_head).to(ft)
+    dp = torch.einsum("bixhd,bjxhd->bxhij", dof, v)
+    c = rnd(prob * dp).sum(dim=-1, keepdim=True)
+    ds = prob * (dp - c)
+    dbias = ds.sum(dim=1).permute(0, 2, 1, 3).reshape(b, f, heads * f).to(bias_flat.dtype)
+    dst = rnd(ds)
+    dq = torch.einsum("bxhij,bjxhd->bixhd", dst, k)
+    dk = rnd(torch.einsum("bxhij,bixhd->bjxhd", dst, q))
+    dv = rnd(torch.einsum("bxhij,bixhd->bjxhd", rnd(prob), dof))
+    dx = torch.cat([t.reshape(b, f, hw, heads * dim_head) for t in (dq, dk, dv)], dim=-1)
+    cos = cos_t.to(ft)[None, :, None]
+    sin = sin_t.to(ft)[None, :, None]
+    return (dx * cos - rotate_pairs(dx) * sin).to(dt), dbias
+
+
+def _check_headpacked_args(qkv, bias_flat, cos_t, sin_t, heads, dim_head):
+    name = "headpacked_temporal_attention"
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {qkv.device}")
+    if qkv.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {qkv.dtype} (want float32 or bfloat16)")
+    if qkv.ndim != 4:
+        raise ValueError(f"{name}: qkv must be [B, F, HW, 3*heads*d], got {tuple(qkv.shape)}")
+    b, f, hw, thd = qkv.shape
+    hd = heads * dim_head
+    if dim_head != 32 or f > 64:
+        raise ValueError(f"{name}: needs d=32, F<=64 (d={dim_head}, F={f})")
+    want = {"qkv": (qkv, (b, f, hw, 3 * hd)), "bias_flat": (bias_flat, (b, f, heads * f)),
+            "cos_t": (cos_t, (f, 3 * hd)), "sin_t": (sin_t, (f, 3 * hd))}
+    for key, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != {shape}")
+        if t.device != qkv.device:
+            raise ValueError(f"{name}: arguments on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: arguments must be contiguous")
+    if cos_t.dtype != qkv.dtype or sin_t.dtype != qkv.dtype:
+        raise TypeError(f"{name}: rotary table dtype != qkv dtype {qkv.dtype}")
+    if bias_flat.dtype != torch.float32:
+        raise TypeError(f"{name}: bias_flat {bias_flat.dtype} where float32 is required")
+
+
+def _launch_headpacked_fwd(qkv, bias_flat, cos_t, sin_t, heads):
+    b, f, hw, thd = qkv.shape
+    out = torch.empty((b, f, hw, thd // 3), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load("headpacked_attention")
+    name = "launch_headpacked_fwd_" + _suffix(qkv.dtype)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(*(_build.ptr(t) for t in (qkv, bias_flat, cos_t, sin_t, out)),
+              b, f, hw, heads, _build.stream(qkv.device))
+    _build.check(lib, name, code)
+    headpacked_temporal_attention.launches += 1
+    return out
+
+
+def _launch_headpacked_bwd(qkv, bias_flat, cos_t, sin_t, do, heads, want_dbias: bool):
+    b, f, hw, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    # pixels one block walks in order; its [F, F] partial of dbias is summed
+    # with the other chunks' by a second launch, in index order
+    px = max(1, min(16, hw // 64))
+    dbias = partial = None
+    if want_dbias:
+        chunks = -(-hw // px)
+        partial = torch.empty((b, heads, chunks, f, f), dtype=torch.float32, device=qkv.device)
+        dbias = torch.empty_like(bias_flat)
+    lib = _build.load("headpacked_attention")
+    name = "launch_headpacked_bwd_" + _suffix(qkv.dtype)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    null = ctypes.c_void_p(None)
+    code = fn(*(_build.ptr(t) for t in (qkv, bias_flat, cos_t, sin_t, do, dqkv)),
+              null if partial is None else _build.ptr(partial),
+              null if dbias is None else _build.ptr(dbias),
+              b, f, hw, heads, px, _build.stream(qkv.device))
+    _build.check(lib, name, code)
+    headpacked_temporal_attention.backward_launches += 1
+    return dqkv, dbias
+
+
+class _HeadpackedAttention(torch.autograd.Function):
+    """Saves the inputs and recomputes the probabilities in the backward;
+    `use_kernel` picks the CUDA kernels or the plain forward and backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias_flat, cos_t, sin_t, heads, dim_head, use_kernel):
+        ctx.save_for_backward(qkv, bias_flat, cos_t, sin_t)
+        ctx.heads, ctx.dim_head, ctx.use_kernel = heads, dim_head, use_kernel
+        if use_kernel:
+            return _launch_headpacked_fwd(qkv, bias_flat, cos_t, sin_t, heads)
+        return headpacked_forward_plain(qkv, bias_flat, cos_t, sin_t, heads, dim_head)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        qkv, bias_flat, cos_t, sin_t = ctx.saved_tensors
+        want_dbias = ctx.needs_input_grad[1]
+        do = do.to(qkv.dtype).contiguous()
+        if ctx.use_kernel:
+            dqkv, dbias = _launch_headpacked_bwd(
+                qkv, bias_flat, cos_t, sin_t, do, ctx.heads, want_dbias)
+        else:
+            dqkv, dbias = headpacked_backward_plain(
+                qkv, bias_flat, cos_t, sin_t, do, ctx.heads, ctx.dim_head)
+        return dqkv, (dbias if want_dbias else None), None, None, None, None, None
+
+
+def headpacked_temporal_attention(qkv, bias_flat, cos_t, sin_t, heads: int, dim_head: int):
+    """Differentiable temporal attention on the raw `to_qkv` output.
+
+    Args:
+      qkv: `[B, F, HW, 3*heads*d]`, rotary NOT applied (it is folded in
+        through `cos_t`/`sin_t`), bf16 or fp32.
+      bias_flat: `[B, F, heads*F]` fp32 (:func:`build_bias_flat`); may hold
+        `NEG_INF` off the diagonal (focus rows).
+      cos_t/sin_t: `[F, 3*heads*d]` in qkv's dtype (:func:`rotary_tables`).
+
+    Returns `[B, F, HW, heads*d]`. Gradients flow to `qkv` and `bias_flat`.
+    CPU tensors take the plain forward and backward; CUDA tensors launch
+    `csrc/headpacked_attention.cu` (d = 32, F <= 64) or raise.
+    `.launches` / `.backward_launches` count the kernel launches.
+    """
+    use_kernel = qkv.device.type != "cpu"
+    if use_kernel:
+        _check_headpacked_args(qkv, bias_flat, cos_t, sin_t, heads, dim_head)
+    return _HeadpackedAttention.apply(qkv, bias_flat, cos_t, sin_t, heads, dim_head, use_kernel)
+
+
+def headpacked_temporal_attention_plain(qkv, bias_flat, cos_t, sin_t, heads: int, dim_head: int):
+    """Plain version of :func:`headpacked_temporal_attention` on any device
+    (same arguments, same rounding points, differentiable)."""
+    return _HeadpackedAttention.apply(qkv, bias_flat, cos_t, sin_t, heads, dim_head, False)
+
+
 fused_temporal_layer.launches = 0
 fused_spatial_linear_layer.launches = 0
+headpacked_temporal_attention.launches = 0
+headpacked_temporal_attention.backward_launches = 0

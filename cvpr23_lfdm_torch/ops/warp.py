@@ -73,7 +73,8 @@ def warp_video_plain(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
 def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
     """Warp of one source per video at per-frame grids, `[B, F, H, W, C]`.
     CPU tensors take the plain version; CUDA tensors launch
-    `csrc/warp_video.cu`."""
+    `csrc/warp_video.cu`, which is forward-only (a gradient goes through
+    :func:`grid_sample`)."""
     if src.device.type == "cpu":
         return warp_video_plain(src, grid5)
     if src.device.type != "cuda":
@@ -90,6 +91,7 @@ def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
         raise ValueError("warp_video: source and grid on different devices")
     if not (src.is_contiguous() and grid5.is_contiguous()):
         raise ValueError("warp_video: inputs must be contiguous")
+    _build.require_no_grad("warp_video", src, grid5)
     out = torch.empty((b, f, h, w, c), dtype=src.dtype, device=src.device)
     lib = _build.load("warp_video")
     name = "launch_warp_video_" + ("f32" if src.dtype == torch.float32 else "bf16")

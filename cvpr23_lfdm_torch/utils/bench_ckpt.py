@@ -1,4 +1,4 @@
-"""The serving benchmark checkpoint, and the bridge from JAX variable trees.
+"""The benchmark checkpoint, and the bridge from JAX variable trees.
 
 Counterpart of `cvpr23_lfdm_tpu/utils/bench_ckpt.py::load_bench_ckpt`.
 `assets/bench_ckpt/` holds the full UNet variables (`unet.msgpack`), the
@@ -81,12 +81,14 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def generator_tree(lfae_vars: dict) -> dict:
-    """The generator's variables out of a full LFAE tree, without the
-    training-only pixelwise flow predictor (as the checkpoint stores it)."""
+def lfae_subtree(lfae_vars: dict, name: str, with_flow_predictor: bool = True) -> dict:
+    """One submodule's variables (`region_predictor`, `bg_predictor` or
+    `generator`) out of a full LFAE tree `{"params"|"batch_stats": {...}}`;
+    the generator optionally without its pixelwise flow predictor (as the
+    serving model holds it and the bench checkpoint stores it)."""
+    drop = () if with_flow_predictor else ("pixelwise_flow_predictor",)
     return {
-        col: {k: v for k, v in lfae_vars[col]["generator"].items()
-              if k != "pixelwise_flow_predictor"}
+        col: {k: v for k, v in lfae_vars[col][name].items() if k not in drop}
         for col in ("params", "batch_stats") if col in lfae_vars
     }
 
@@ -134,20 +136,30 @@ def load_bench_ckpt(directory: str) -> BenchCkpt:
     )
 
 
-def apply_bench_ckpt(directory: str, cfg, device=None):
-    """Build the serving model on the checkpoint: the sampler takes the
-    checkpoint's `objective`. Returns `(cfg, model, cond [1, D], ref [1, H,
-    W, 3] or None, meta)`, tensors on the model's device (the CUDA card
-    unless `device` says otherwise)."""
+def apply_bench_ckpt(directory: str, cfg, device=None, training: bool = False,
+                     lfae_seed: int = 0):
+    """Build the model on the checkpoint: the sampler takes the
+    checkpoint's `objective`. With `training`, the model is the training
+    form; the checkpoint holds no region, background or pixelwise flow
+    predictor, so those get seeded weights (`seed_lfae_weights(lfae_seed)`).
+    Returns `(cfg, model, cond [1, D], ref [1, H, W, 3] or None, meta)`,
+    tensors on the model's device (the CUDA card unless `device` says
+    otherwise)."""
     from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion
+    from cvpr23_lfdm_torch.models.flow_autoenc import seed_lfae_weights
 
     ck = load_bench_ckpt(directory)
     cfg = cfg.replace(
         diffusion=dataclasses.replace(cfg.diffusion, objective=ck.meta["objective"])
     )
-    model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=device)
+    model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=device, training=training)
     model.unet.load_state_dict(from_jax_params(ck.unet_vars))
-    model.generator.load_state_dict(from_jax_params(ck.generator_vars))
+    state = from_jax_params(ck.generator_vars)
+    if training:
+        flow = model.generator.pixelwise_flow_predictor
+        seed_lfae_weights([model.region_predictor, model.bg_predictor, flow], lfae_seed)
+        state.update({f"pixelwise_flow_predictor.{k}": v for k, v in flow.state_dict().items()})
+    model.generator.load_state_dict(state)
     cond = torch.from_numpy(ck.cond)[None].to(model.device)
     ref = None if ck.ref is None else torch.from_numpy(ck.ref)[None].to(model.device)
     return cfg, model, cond, ref, ck.meta

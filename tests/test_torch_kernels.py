@@ -4,7 +4,7 @@ Marked `cuda`: each test skips without a CUDA device (decided inside the
 test). On a machine with the card and `nvcc`, where JAX is absent (the
 suite's conftest imports it):
 `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
-Shapes are small versions of the serving shapes; tolerances as in
+Shapes are small versions of the serving and training shapes; tolerances as in
 `chip_smoke.py` (fp32: sums in another order; bf16: one bf16 rounding step
 at the same points).
 """
@@ -85,3 +85,98 @@ def test_kernel_wrappers_check_arguments(dev):
         W.warp_video(src, torch.zeros(1, 2, 8, 8, 2, device=dev, dtype=torch.float64))
     with pytest.raises(ValueError):
         W.warp_video(src, torch.zeros(1, 2, 4, 4, 2, device=dev))
+
+
+def _headpacked_inputs(dev, dtype, b, f, hw, heads, focus, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, f, hw, 3 * heads * 32, generator=g, device=dev).to(dtype)
+    pos_bias = torch.randn(heads, f, f, generator=g, device=dev)
+    mask = torch.tensor([True] + [False] * (b - 1), device=dev) if focus else None
+    bias = A.build_bias_flat(pos_bias, b, f, mask)
+    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, dtype, dev)
+    do = torch.randn(b, f, hw, heads * 32, generator=g, device=dev).to(dtype)
+    return qkv, bias, cos_t, sin_t, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,f,hw,focus", [(2, 40, 64, False), (3, 40, 16, True), (1, 64, 8, False),
+                                          (2, 7, 130, True)])
+def test_headpacked_attention_kernels(dev, dtype, b, f, hw, focus):
+    """Forward and backward kernels against the plain forward and backward
+    (dbias: an fp32 sum over HW pixels, tolerance scaled by sqrt(HW))."""
+    heads = 8
+    qkv, bias, cos_t, sin_t, do = _headpacked_inputs(dev, dtype, b, f, hw, heads, focus)
+    outs = []
+    for fn in (A.headpacked_temporal_attention, A.headpacked_temporal_attention_plain):
+        q = qkv.clone().requires_grad_()
+        bb = bias.clone().requires_grad_()
+        fwd0 = A.headpacked_temporal_attention.launches
+        bwd0 = A.headpacked_temporal_attention.backward_launches
+        out = fn(q, bb, cos_t, sin_t, heads, 32)
+        # a non-contiguous cotangent, as autograd may hand over
+        out.backward(do.transpose(1, 2).contiguous().transpose(1, 2))
+        kernel = fn is A.headpacked_temporal_attention
+        assert A.headpacked_temporal_attention.launches - fwd0 == int(kernel)
+        assert A.headpacked_temporal_attention.backward_launches - bwd0 == int(kernel)
+        outs.append((out.detach(), q.grad, bb.grad))
+    (out, dq, db), (pout, pdq, pdb) = outs
+    _close(out, pout, dtype)
+    _close(dq, pdq, dtype)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(db, pdb, atol=atol * hw ** 0.5, rtol=rtol)
+    assert torch.isfinite(dq.float()).all() and torch.isfinite(db).all()
+
+
+@pytest.mark.cuda
+def test_headpacked_backward_is_bit_reproducible_and_honours_needs_grad(dev):
+    qkv, bias, cos_t, sin_t, do = _headpacked_inputs(dev, torch.bfloat16, 2, 40, 256, 8, False)
+    grads = []
+    for _ in range(2):
+        q, bb = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        A.headpacked_temporal_attention(q, bb, cos_t, sin_t, 8, 32).backward(do)
+        grads.append((q.grad, bb.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    q = qkv.clone().requires_grad_()
+    A.headpacked_temporal_attention(q, bias, cos_t, sin_t, 8, 32).backward(do)
+    assert torch.equal(q.grad, grads[0][0]) and bias.grad is None
+
+
+@pytest.mark.cuda
+def test_headpacked_wrapper_checks_arguments(dev):
+    qkv, bias, cos_t, sin_t, _ = _headpacked_inputs(dev, torch.float32, 1, 8, 4, 2, False)
+    with pytest.raises(ValueError):
+        A.headpacked_temporal_attention(qkv, bias, cos_t, sin_t, 4, 16)  # d != 32
+    with pytest.raises(TypeError):
+        A.headpacked_temporal_attention(qkv, bias.double(), cos_t, sin_t, 2, 32)
+    with pytest.raises(ValueError):
+        A.headpacked_temporal_attention(qkv.transpose(1, 2), bias, cos_t, sin_t, 2, 32)
+    with pytest.raises(TypeError):
+        A.headpacked_temporal_attention(qkv.half(), bias, cos_t, sin_t, 2, 32)
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_raise_when_a_gradient_is_asked(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    c, f, heads = 64, 8, 8
+    x = torch.randn(1, f, 16, c, generator=g, device=dev)
+    gamma = torch.ones(c, device=dev)
+    wqkv = torch.randn(c, 768, generator=g, device=dev) / 8
+    wout = torch.randn(256, c, generator=g, device=dev) / 16
+    bias = A.build_bias_flat(torch.zeros(heads, f, f, device=dev), 1, f)
+    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, torch.float32, dev)
+    bout = torch.zeros(c, device=dev)
+    src = torch.randn(1, 8, 8, 4, device=dev)
+    grid = torch.zeros(1, 2, 8, 8, 2, device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        A.fused_temporal_layer(x, gamma, wqkv.requires_grad_(), wout, bias, cos_t, sin_t, heads, 32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        A.fused_spatial_linear_layer(x.clone().requires_grad_(), gamma, wqkv.detach(), wout, bout, heads, 32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        W.warp_video(src.requires_grad_(), grid)
+    with torch.no_grad():  # the serving path
+        A.fused_temporal_layer(x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32)
+        W.warp_video(src, grid)
+    # the plain versions stay differentiable
+    A.fused_temporal_layer_plain(x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32).sum().backward()
+    assert wqkv.grad is not None
