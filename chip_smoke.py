@@ -5,8 +5,9 @@ Run from the repository root: `python3 chip_smoke.py` (one GPU; `nvcc`
 under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 1. env      — GPU name and power limit, torch/CUDA versions, and the build
-              of the four kernel sources in `cvpr23_lfdm_torch/csrc/` (one
-              `nvcc` per source, started together).
+              of the seven kernel sources in `cvpr23_lfdm_torch/csrc/` and
+              of the seven ablation builds of the temporal layer (one `nvcc`
+              per library, all started together).
 2. kernel   — each kernel against its plain PyTorch version at every shape
               the serving path (fused layers, warp) or the training step
               (head-packed attention, forward and backward, B=5) gives it,
@@ -17,7 +18,15 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               pre-rotated q, k, v for the head-packed pair; bf16; timed
               here, used nowhere in the port); the least time the card
               could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s bf16,
-              whichever is larger).
+              whichever is larger). Likewise the packed attention at the
+              four B=1 serving shapes and a focus case (library: SDPA on
+              pre-permuted q, k, v), the fused GroupNorm+FiLM+SiLU at every
+              `Block` shape of a serving eval, with and without FiLM and
+              run twice for bit-identity (no single library call), and the
+              fused warp+blend under both of its names for the three blends
+              at `[8, 32, 32, 256]` and `[8, 128, 128, 67]` (library:
+              `F.grid_sample` for blend none); these warp+blend calls are
+              lines of their own and enter no total.
 3. serving  — the MUG serving path at full width on the bench checkpoint
               (128² frames, 40 frames, DDIM-10, B=1, cond_scale 1, bf16
               compute): output shapes, finite values, `out_vid` in [0, 1],
@@ -52,9 +61,31 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               difference; and the kernel step run twice gives bit-identical
               gradients.
 
-Then one `kernels` line (per kernel: launches in one serving video or one
-training step, and its time, plain time, bound and library time summed over
-those calls), the `nvidia-smi` name/power-limit line, and last
+8. serving forms — the full MUG video (bf16, B=1) with
+              `temporal_attn_impl="pallas"` (100 packed-attention launches,
+              no fused-layer launch, 3 warps) and with `"xla"` (no
+              attention kernel at all): gates as in phase 3, frames/s.
+9. forms parity — `scripts/check_kernel_parity.py` in fp32 (TF32 off): the
+              video under `xla`, `pallas` and `pallas3` on the same weights
+              and noise, max-abs per output against `xla`, tolerance 5e-4.
+10. fused norm — `scripts/bench_unet.py`: one full-width UNet eval, bf16,
+              B=1 and B=8, `fused_norm=True` against `False`: both times,
+              the output difference, 40 launches per eval (gated).
+11. ablate   — `scripts/bench_attn_ablate.py` at `[8, 40, 1024, 64]` bf16:
+              ms per ablation build and `full - variant`; `full` is
+              bit-equal to the serving kernel and held against the plain
+              layer.
+12. bench warp — `scripts/bench_warp.py`: the decode-warp variants at
+              `[8, 40, 128, 128, 67]` and `warp_video` / `F.grid_sample` /
+              `warp_onehot` at every decode scale. Then every folded
+              warp+blend call of that run (`[320, s, s, C]`, blend none) on
+              the same inputs, elementwise against the plain version and
+              timed beside it and `F.grid_sample`: the totals of
+              `warp_onehot` and `warp_gather` in the `kernels` line.
+
+Then one `kernels` line (per kernel: launches on its main path, and its
+time, plain time, bound and library time summed over the calls named in
+`per`), the `nvidia-smi` name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without that
 line.
 """
@@ -97,6 +128,18 @@ TRAIN_BATCH = 5
 # dbias sums ds over all HW pixels in fp32: the same terms in another order
 DBIAS_TOL = {"float32": {"atol": 2e-3, "rtol": 1e-3}, "bfloat16": {"atol": 0.5, "rtol": 5e-2}}
 TRAIN_PARITY_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_max_abs_rel": 2e-3}
+# fused GroupNorm+FiLM+SiLU per UNet eval at B=1: (H, C) -> (Blocks with FiLM, without)
+NORM_SHAPES = {(32, 64): (4, 8), (16, 128): (2, 2), (16, 64): (2, 2), (8, 256): (2, 2),
+               (8, 128): (2, 2), (4, 512): (4, 4), (4, 256): (2, 2)}
+BLOCKS_PER_EVAL = 40  # 20 ResnetBlocks of two Blocks each
+# warp+blend checks: [B, H, W, C]; one call of each blend at each shape
+BLEND_SHAPES = ((8, 32, 32, 256), (8, 128, 128, 67))
+ABLATE_SHAPE = (8, 40, 1024, 64)
+FUSED_NORM_BATCHES = (1, 8)
+# bf16 UNet eval, fused vs unfused norm: each Block rounds to bf16 at other
+# points (one rounding after fp32 math against three bf16 steps), 40 Blocks
+# deep; relative to the largest output value
+FUSED_NORM_TOL = {"max_rel": 5e-2, "mean_rel": 1e-2}
 PATH_TOL = 2e-3    # fp32 serving path, kernels vs plain, max-abs
 GOLDEN_TOL = 5e-3  # fp32 serving path on the card vs the JAX package on a CPU
 
@@ -106,21 +149,9 @@ def emit(obj) -> None:
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    import torch
+    from cvpr23_lfdm_torch.utils.profiling import time_fn
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return time_fn(fn, iters=reps, warmup=warmup)["median_ms"]
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -153,6 +184,33 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------- phase 2
 
 
+def _totals(names) -> dict:
+    return {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+                "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0} for n in names}
+
+
+def _record(totals, failures, name, shape, dname, res, weight, times=None, nbytes=0.0, flops=0.0,
+            peak=BF16_FLOPS, **extra):
+    """Emit one kernel line; add `weight` calls of it to the kernel's totals
+    (0: a call off the kernel's main path, on a line of its own)."""
+    line = {"phase": "kernel", "name": name, "shape": shape, "dtype": dname, **res, **extra}
+    if not (res["ok"] and res["finite"]):
+        failures.append(f"{name} {shape} {dname}")
+    if times is not None:
+        b_ms, b_by = bound(nbytes, flops, peak)
+        line.update(times, bound_ms=b_ms, bound_by=b_by, calls=weight)
+        t = totals[name]
+        t["ms"] += weight * times["kernel_ms"]
+        t["plain_ms"] += weight * times["plain_ms"]
+        t["bound_ms"] += weight * b_ms
+        t["bytes"] += weight * nbytes
+        t["flops"] += weight * flops
+        if weight and times.get("library_ms") is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + weight * times["library_ms"]
+        t["max_abs_err"] = max(t["max_abs_err"], res["max_abs_err"])
+    emit(line)
+
+
 def check_kernels(failures: list) -> dict:
     """Each kernel against its plain version at every serving shape; returns
     per-kernel totals over the calls of one video (bf16 times)."""
@@ -165,28 +223,9 @@ def check_kernels(failures: list) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    totals = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
-                  "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0}
-              for n in ("fused_temporal_layer", "fused_spatial_linear_layer", "warp_video")}
+    totals = _totals(("fused_temporal_layer", "fused_spatial_linear_layer", "warp_video"))
+    record = lambda *a, **k: _record(totals, failures, *a, **k)
     hd = HEADS * DH
-
-    def record(name, shape, dtype, res, per_video, times=None, nbytes=0.0, flops=0.0, peak=BF16_FLOPS):
-        line = {"phase": "kernel", "name": name, "shape": shape, "dtype": dtype, **res}
-        if not (res["ok"] and res["finite"]):
-            failures.append(f"{name} {shape} {dtype}")
-        if times is not None:
-            b_ms, b_by = bound(nbytes, flops, peak)
-            line.update(times, bound_ms=b_ms, bound_by=b_by, calls_per_video=per_video)
-            t = totals[name]
-            t["ms"] += per_video * times["kernel_ms"]
-            t["plain_ms"] += per_video * times["plain_ms"]
-            t["bound_ms"] += per_video * b_ms
-            t["bytes"] += per_video * nbytes
-            t["flops"] += per_video * flops
-            if times.get("library_ms") is not None:
-                t["library_ms"] = (t["library_ms"] or 0.0) + per_video * times["library_ms"]
-            t["max_abs_err"] = max(t["max_abs_err"], res["max_abs_err"])
-        emit(line)
 
     pos_bias = randn(HEADS, F_FRAMES, F_FRAMES)
     for dtype in (torch.float32, torch.bfloat16):
@@ -287,29 +326,23 @@ def plain_ops():
          A.headpacked_temporal_attention) = saved
 
 
-def counters() -> dict:
-    from cvpr23_lfdm_torch.ops import attention as A
-    from cvpr23_lfdm_torch.ops import warp as W
+NEW_KERNELS = ("packed_temporal_attention", "groupnorm_film_silu", "warp_onehot", "warp_gather",
+               "fused_temporal_layer_ablate")
 
-    return {"fused_temporal_layer": A.fused_temporal_layer.launches,
-            "fused_spatial_linear_layer": A.fused_spatial_linear_layer.launches,
-            "warp_video": W.warp_video.launches,
-            "headpacked_attention_fwd": A.headpacked_temporal_attention.launches,
-            "headpacked_attention_bwd": A.headpacked_temporal_attention.backward_launches}
+
+def counters() -> dict:
+    from cvpr23_lfdm_torch.ops import read_counters
+
+    return read_counters()
 
 
 def reset_counters() -> None:
-    from cvpr23_lfdm_torch.ops import attention as A
-    from cvpr23_lfdm_torch.ops import warp as W
+    from cvpr23_lfdm_torch import ops
 
-    A.fused_temporal_layer.launches = 0
-    A.fused_spatial_linear_layer.launches = 0
-    W.warp_video.launches = 0
-    A.headpacked_temporal_attention.launches = 0
-    A.headpacked_temporal_attention.backward_launches = 0
+    ops.reset_counters()
 
 
-def serving_model(dtype: str, frames: int = F_FRAMES):
+def serving_model(dtype: str, frames: int = F_FRAMES, impl: str = "pallas3"):
     import dataclasses
 
     from cvpr23_lfdm_torch.config import mug_config
@@ -318,7 +351,8 @@ def serving_model(dtype: str, frames: int = F_FRAMES):
     cfg = mug_config()
     cfg = cfg.replace(
         diffusion=dataclasses.replace(cfg.diffusion, sampling_timesteps=DDIM_STEPS,
-                                      num_frames=frames, compute_dtype=dtype),
+                                      num_frames=frames, compute_dtype=dtype,
+                                      temporal_attn_impl=impl),
         lfae=dataclasses.replace(cfg.lfae, compute_dtype=dtype),
     )
     return apply_bench_ckpt(os.path.join(ROOT, "assets", "bench_ckpt"), cfg)
@@ -337,20 +371,26 @@ def injected_noise(cfg, seed: int):
     return torch.from_numpy(init).cuda(), torch.from_numpy(noise).cuda()
 
 
-def run_serving(failures: list, timed_runs: int = 3) -> tuple[dict, float]:
+def run_serving(failures: list, timed_runs: int = 3, impl: str = "pallas3",
+                phase: str = "serving") -> tuple[dict, float]:
     import torch
 
-    cfg, model, cond, ref, meta = serving_model("bfloat16")
+    cfg, model, cond, ref, meta = serving_model("bfloat16", impl=impl)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     sample = lambda: model.sample_video(ref, cond, 1.0, generator=gen)
     sample()  # warm-up: cuDNN autotuning, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
     out = sample()
     torch.cuda.synchronize()
     launches = counters()
     want = {"fused_temporal_layer": 10 * DDIM_STEPS, "fused_spatial_linear_layer": 8 * DDIM_STEPS,
-            "warp_video": 3, "headpacked_attention_fwd": 0, "headpacked_attention_bwd": 0}
+            "warp_video": 3, "headpacked_attention_fwd": 0, "headpacked_attention_bwd": 0,
+            **dict.fromkeys(NEW_KERNELS, 0)}
+    if impl != "pallas3":  # the other forms launch no fused layer
+        want.update(fused_temporal_layer=0, fused_spatial_linear_layer=0,
+                    packed_temporal_attention=10 * DDIM_STEPS if impl == "pallas" else 0)
     shapes = {k: list(v.shape) for k, v in out.items()}
     ov = out["out_vid"]
     s, h = cfg.diffusion.img_size, cfg.lfae.frame_shape
@@ -369,13 +409,13 @@ def run_serving(failures: list, timed_runs: int = 3) -> tuple[dict, float]:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     med = float(np.median(lat))
-    emit({"phase": "serving", "objective": meta["objective"], "dtype": "bfloat16",
+    emit({"phase": phase, "temporal_attn_impl": impl, "objective": meta["objective"], "dtype": "bfloat16",
           "shapes": shapes, "launches": launches, "launches_expected": want, **checks,
           "latency_s": lat, "median_latency_s": med, "frames_per_s": F_FRAMES / med,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "gpu": gpu_line()})
     for k, v in checks.items():
         if not v:
-            failures.append(f"serving {k}")
+            failures.append(f"{phase} {impl} {k}")
     del model
     torch.cuda.empty_cache()
     return launches, med
@@ -573,7 +613,8 @@ def training_setup(dtype: str, batch: int, seed: int = 0):
     from cvpr23_lfdm_torch.utils.bench_ckpt import apply_bench_ckpt
 
     cfg = mug_config()
-    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, compute_dtype=dtype))
+    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, compute_dtype=dtype,
+                                                    temporal_attn_impl="pallas2"))
     cfg, model, _, _, meta = apply_bench_ckpt(
         os.path.join(ROOT, "assets", "bench_ckpt"), cfg, training=True, lfae_seed=seed)
     trainer = DMTrainer(cfg, steps_per_epoch=93, model=model)
@@ -623,7 +664,8 @@ def run_training(failures: list) -> tuple[dict, float]:
         p.grad is None or not torch_isfinite(p.grad) or float(p.grad.abs().max()) == 0.0)]
     unmoved = [n for n, p in unet.named_parameters() if torch.equal(p.detach(), before[n])]
     want = {"fused_temporal_layer": 0, "fused_spatial_linear_layer": 0, "warp_video": 1,
-            "headpacked_attention_fwd": 10, "headpacked_attention_bwd": 10}
+            "headpacked_attention_fwd": 10, "headpacked_attention_bwd": 10,
+            **dict.fromkeys(NEW_KERNELS, 0)}
     checks = {
         "finite": bool(np.isfinite(losses).all() and np.isfinite(grad_norms).all()),
         "launches_ok": launches == want,
@@ -722,21 +764,9 @@ def train_breakdown(trainer, data, draws, step_s: float) -> None:
 
 
 def profile_rows(prof) -> list:
-    """Rows with device time, largest first. `on_device` marks device
-    activity (kernels, copies); the other rows are operators, autograd
-    nodes and runtime calls, which repeat the time of what they launch."""
-    from torch.autograd import DeviceType
+    from cvpr23_lfdm_torch.utils.profiling import profile_rows as rows
 
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3, "count": ev.count,
-                         "on_device": getattr(ev, "device_type", None) == DeviceType.CUDA})
-    rows.sort(key=lambda r: -r["device_ms"])
-    return rows
+    return rows(prof)
 
 
 def run_train_parity(failures: list) -> None:
@@ -785,6 +815,285 @@ def run_train_parity(failures: list) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- UNet forms and bench scripts
+
+
+def check_new_kernels(failures: list) -> dict:
+    """The packed attention, the fused norm and the warp+blend against
+    their plain versions; per-kernel totals (bf16 times; the warp in fp32,
+    the type its kernel works in): the packed attention over the calls of
+    one serving video, the norm over the calls of one UNet eval. The
+    warp+blend calls here (three blends, two shapes) are lines of their own;
+    that kernel's totals are the folded calls of `run_bench_warp`."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvpr23_lfdm_torch.ops import attention as A
+    from cvpr23_lfdm_torch.ops import norm as N
+    from cvpr23_lfdm_torch.ops import warp as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    totals = _totals(("packed_temporal_attention", "groupnorm_film_silu", "warp_onehot", "warp_gather"))
+    hd, f = HEADS * DH, F_FRAMES
+    pos_bias = randn(HEADS, f, f)
+
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            timed = dtype == torch.bfloat16
+            esz = 2 if timed else 4
+
+            # ---- row 6: packed attention at the serving shapes (B=1) + a focus case
+            cases = [(1, hw, n, False) for hw, n in HEADPACKED_SHAPES.items()] + [(2, 256, 0, True)]
+            for b, hw, n_eval, focus in cases:
+                qkv = randn(b, hw, f, 3 * hd).to(dtype)
+                pack = A.pick_pack(hw, f)
+                mask = torch.tensor([True, False], device=dev) if focus else None
+                bias = A.build_bias(pos_bias, b, pack, f, mask)
+                args = (qkv, bias, HEADS, DH, pack)
+                out = A.packed_temporal_attention(*args)
+                res = compare(out, A.packed_temporal_attention_plain(*args), TOL[dname])
+                times, extra = None, {}
+                if timed and not focus:
+                    q4, k4, v4 = (qkv[..., i * hd:(i + 1) * hd].reshape(b * hw, f, HEADS, DH)
+                                  .transpose(1, 2).contiguous() for i in range(3))
+                    m4 = pos_bias[None].to(dtype).contiguous()  # [1, heads, F, F], broadcast
+                    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=1.0)
+                    times = {"kernel_ms": median_ms(lambda: A.packed_temporal_attention(*args)),
+                             "plain_ms": median_ms(lambda: A.packed_temporal_attention_plain(*args), reps=5),
+                             "library_ms": median_ms(sdpa)}
+                    lib = sdpa().transpose(1, 2).reshape(b, hw, f, hd)
+                    extra = {"library_max_abs_diff": float((lib.float() - out.float()).abs().max())}
+                    del q4, k4, v4, lib
+                # of the bias the function needs the [heads, F, F] table and one focus flag per
+                # batch entry, not the packed [B, heads, P*F, P*F] tensor that carries them
+                nbytes = (qkv.numel() + out.numel()) * esz + HEADS * f * f * 4 + b
+                flops = b * hw * HEADS * 4 * f * f * DH
+                _record(totals, failures, "packed_temporal_attention",
+                        [b, hw, f, 3 * hd] + (["focus"] if focus else []), dname, res,
+                        n_eval * DDIM_STEPS, times, nbytes, flops, **extra)
+                del qkv, bias, out
+
+            # ---- row 7: fused norm at every Block shape of a serving eval, FiLM and none
+            for (h, c), counts in NORM_SHAPES.items():
+                x = (1.5 * randn(1, f, h, h, c) + 0.3).to(dtype)
+                gamma, beta = 1 + 0.3 * randn(c), 0.2 * randn(c)
+                for film, n_eval in zip((True, False), counts):
+                    ss = (randn(1, 1, 1, 1, c).to(dtype), randn(1, 1, 1, 1, c).to(dtype)) if film else ()
+                    call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss)
+                    out = call()
+                    res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss), TOL[dname])
+                    same = bool(torch.equal(out, call()))
+                    res["ok"] = res["ok"] and same
+                    times = None
+                    if timed:
+                        times = {"kernel_ms": median_ms(call),
+                                 "plain_ms": median_ms(lambda: N.groupnorm_film_silu_plain(
+                                     x, gamma, beta, *ss), reps=5),
+                                 "library_ms": None}
+                    nbytes = 2 * x.numel() * esz + (2 + 2 * film) * c * 4
+                    _record(totals, failures, "groupnorm_film_silu", [1, f, h, h, c], dname, res,
+                            n_eval, times, nbytes, 10 * x.numel(), FP32_FLOPS,
+                            film=film, bit_identical_twice=same)
+
+            # ---- rows 8+9: warp + blend, both names, three blends, two shapes
+            for name, fn in (("warp_onehot", W.warp_onehot), ("warp_gather", W.warp_gather)):
+                for b, h, w, c in BLEND_SHAPES:
+                    img = randn(b, h, w, c).to(dtype)
+                    lin_x, lin_y = torch.linspace(-1, 1, w, device=dev), torch.linspace(-1, 1, h, device=dev)
+                    ident = torch.stack(torch.meshgrid(lin_x, lin_y, indexing="xy"), -1)
+                    grid = (ident[None] + 0.3 * randn(b, h, w, 2)).contiguous()
+                    occ, prev = rand(b, h, w, 1).to(dtype), randn(b, h, w, c).to(dtype)
+                    for blend, extra_args in (("none", ()), ("occlusion", (occ,)), ("previous", (occ, prev))):
+                        args = (img, grid, *extra_args)
+                        res = compare(fn(*args), W.warp_blend_plain(*args), WARP_TOL["float32"])
+                        times = None
+                        if not timed:  # the kernel works in fp32: time it there, without the casts
+                            times = {"kernel_ms": median_ms(lambda: fn(*args)),
+                                     "plain_ms": median_ms(lambda: W.warp_blend_plain(*args), reps=5),
+                                     "library_ms": None}
+                            if blend == "none":
+                                nchw = img.permute(0, 3, 1, 2)
+                                times["library_ms"] = median_ms(lambda: F.grid_sample(
+                                    nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+                        n_in = img.numel() + grid.numel() + sum(t.numel() for t in extra_args)
+                        _record(totals, failures, name, [b, h, w, c], dname, res, 0, times,
+                                (n_in + img.numel()) * 4, (8 + 3 * len(extra_args)) * img.numel(),
+                                FP32_FLOPS, blend=blend)
+                    del img, grid, occ, prev
+            torch.cuda.empty_cache()
+    return totals
+
+
+def run_forms_parity(failures: list) -> None:
+    from cvpr23_lfdm_torch.scripts import check_kernel_parity
+
+    res = check_kernel_parity.run("float32", ("xla", "pallas", "pallas3"))
+    emit({"phase": "forms parity", "what": "fp32 video (TF32 off) under xla, pallas, pallas3: "
+          "same weights, same injected noise, max-abs per output against xla", **res})
+    if not res["ok"]:
+        failures.append("forms parity")
+
+
+def run_fused_norm(failures: list) -> dict:
+    """One full-width UNet eval (bench checkpoint, bf16, `pallas3`) with and
+    without the fused norm, through the port's `bench_unet`; returns the
+    launch counts of one fused eval at B=1."""
+    import torch
+
+    from cvpr23_lfdm_torch.scripts import bench_unet
+
+    dev = torch.device("cuda")
+    nets = {fused: bench_unet.make_unet("pallas3", fused, "bfloat16", dev) for fused in (False, True)}
+    launches = None
+    for b in FUSED_NORM_BATCHES:
+        inputs = bench_unet.make_inputs(nets[True], b, F_FRAMES, 32, dev)
+        reset_counters()
+        with torch.no_grad():
+            out_fused = nets[True](**inputs)
+        counted = counters()
+        if b == 1:
+            launches = counted
+        # read in turns: unfused, fused, fused, unfused
+        readings = {False: [], True: []}
+        for fused in (False, True, True, False):
+            res, out = bench_unet.bench(nets[fused], inputs, dev)
+            readings[fused].append(res)
+            if not fused:
+                out_plain = out
+        plain, fused = readings[False][-1], readings[True][-1]
+        # the kernel's own device time in one eval (the per-call timings above
+        # it include the wrapper's host work, which is larger at these sizes)
+        rows = bench_unet.trace(nets[True], inputs, top=10 ** 6)
+        gn_device_ms = {k: sum(r["device_ms"] for r in rows if k in r["name"])
+                        for k in ("gn_partial_kernel", "gn_apply_kernel")}
+        diff = (out_fused - out_plain).abs()
+        scale = float(out_plain.abs().max())
+        tol = FUSED_NORM_TOL
+        checks = {
+            "finite": torch_isfinite(out_fused) and torch_isfinite(out_plain),
+            "launches_ok": counted["groupnorm_film_silu"] == BLOCKS_PER_EVAL
+            and fused["launches_per_eval"]["groupnorm_film_silu"] == BLOCKS_PER_EVAL
+            and plain["launches_per_eval"]["groupnorm_film_silu"] == 0
+            and counted["fused_temporal_layer"] == 10 and counted["fused_spatial_linear_layer"] == 8,
+            "close": float(diff.max()) <= tol["max_rel"] * scale
+            and float(diff.mean()) <= tol["mean_rel"] * scale,
+        }
+        emit({"phase": "fused norm", "batch": b, "dtype": "bfloat16", "attn": "pallas3",
+              "unet_eval_ms_fused": [r["median_ms"] for r in readings[True]],
+              "unet_eval_ms_unfused": [r["median_ms"] for r in readings[False]],
+              "groupnorm_device_ms_per_eval": gn_device_ms,
+              "max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+              "out_max_abs": scale, "tol": tol, "launches_per_eval": counted, **checks,
+              "gpu": gpu_line()})
+        for k, v in checks.items():
+            if not v:
+                failures.append(f"fused norm B={b} {k}")
+    del nets
+    return launches
+
+
+def run_ablate(failures: list) -> tuple[dict, dict]:
+    """The port's `bench_attn_ablate` at the serving hot shape; `full` held
+    against the plain layer. Returns the launch counts and `full`'s entry
+    for the `kernels` line."""
+    import torch
+
+    from cvpr23_lfdm_torch.ops import attention as A
+    from cvpr23_lfdm_torch.scripts import bench_attn_ablate
+
+    reset_counters()
+    rows = bench_attn_ablate.run(shape=ABLATE_SHAPE)
+    launches = counters()
+    full = rows[0]
+    args = bench_attn_ablate.make_args(ABLATE_SHAPE)
+    with torch.no_grad():
+        res = compare(A.fused_temporal_layer_ablated("full", *args),
+                      A.fused_temporal_layer_plain(*args), TOL["bfloat16"])
+        plain_ms = median_ms(lambda: A.fused_temporal_layer_plain(*args), reps=3, warmup=1)
+    b, f, hw, c = ABLATE_SHAPE
+    hd = HEADS * DH
+    x, _, wqkv, wout, bias, cos_t = args[:6]
+    nbytes = (2 * x.numel() + wqkv.numel() + wout.numel() + 2 * cos_t.numel()) * 2 + (c + bias.numel()) * 4
+    flops = b * (2 * f * hw * c * 4 * hd + 4 * hw * HEADS * f * f * DH)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    ok = bool(full["bit_equal_to_serving_kernel"] and res["ok"] and res["finite"]
+              and launches["fused_temporal_layer_ablate"] > 0)
+    emit({"phase": "ablate", "shape": list(ABLATE_SHAPE), "dtype": "bfloat16", "variants": rows,
+          "full_vs_plain": res, "launches": launches["fused_temporal_layer_ablate"], "ok": ok,
+          "gpu": gpu_line()})
+    if not ok:
+        failures.append("ablate")
+    entry = {"ms": full["layer_ms"], "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "max_abs_err": res["max_abs_err"]}
+    return launches, entry
+
+
+def run_bench_warp(failures: list, totals: dict) -> dict:
+    """The port's `bench_warp`: the variants at the largest decode warp and
+    the per-scale table; returns that run's launch counts. Then each folded
+    call that run made (`warp_onehot` at the three decode scales,
+    `warp_gather` at the largest; blend none, the shared source repeated
+    over the frames) once more on the same bf16 inputs, elementwise against
+    the plain version, and timed on their fp32 casts beside the plain
+    version and `F.grid_sample` on the same repeated source: these calls
+    are the two kernels' totals."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvpr23_lfdm_torch.ops import warp as W
+    from cvpr23_lfdm_torch.scripts import bench_warp
+
+    dev = torch.device("cuda")
+    reset_counters()
+    b, f = BLEND_SHAPES[0][0], F_FRAMES
+    big = bench_warp.DECODE_SCALES[-1]
+    image, grid5 = bench_warp.make_case(b, f, *big, torch.bfloat16, dev)
+    rows = bench_warp.sweep(("plain", "grid_sample", "warp_video", "warp_gather"), image, grid5, dev)
+    del image, grid5
+    per_scale = {}
+    for s, c in bench_warp.DECODE_SCALES:
+        image, grid5 = bench_warp.make_case(b, f, s, c, torch.bfloat16, dev)
+        per_scale[f"{s}x{c}"] = bench_warp.sweep(("warp_video", "grid_sample", "warp_onehot"),
+                                                 image, grid5, dev)
+        del image, grid5
+    launches = counters()
+    every = rows + [r for v in per_scale.values() for r in v]
+    # `val_drift` (a difference of whole-tensor means) is information; the gate on the
+    # values is the elementwise comparison below
+    ok = bool(all(np.isfinite(r["ms"]) for r in every)
+              and launches["warp_onehot"] > 0 and launches["warp_gather"] > 0)
+    emit({"phase": "bench warp", "shape": [b, f, big[0], big[0], big[1]], "dtype": "bfloat16",
+          "variants": rows, "per_scale": per_scale, "launches": launches, "ok": ok, "gpu": gpu_line()})
+    if not ok:
+        failures.append("bench warp")
+
+    with torch.no_grad():
+        for s, c in bench_warp.DECODE_SCALES:
+            image, grid5 = bench_warp.make_case(b, f, s, c, torch.bfloat16, dev)
+            img, grid = image.repeat_interleave(f, dim=0), grid5.reshape(b * f, s, s, 2)
+            ref = W.warp_blend_plain(img, grid)
+            img32 = img.float()
+            nchw = img32.permute(0, 3, 1, 2)
+            shared = {"plain_ms": median_ms(lambda: W.warp_blend_plain(img32, grid), reps=3, warmup=1),
+                      "library_ms": median_ms(lambda: F.grid_sample(
+                          nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False), reps=5)}
+            names = [("warp_onehot", W.warp_onehot)] + ([("warp_gather", W.warp_gather)] if (s, c) == big else [])
+            for name, fn in names:
+                res = compare(fn(img, grid), ref, WARP_TOL["float32"])
+                times = {"kernel_ms": median_ms(lambda: fn(img32, grid), reps=10), **shared}
+                _record(totals, failures, name, [b * f, s, s, c], "float32", res, 1, times,
+                        (2 * img.numel() + grid.numel()) * 4, 8 * img.numel(), FP32_FLOPS, blend="none",
+                        what="folded call of the bench_warp run: compared on its bf16 inputs, "
+                             "timed on their fp32 casts")
+            del image, grid5, img, grid, ref, img32, nchw
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -805,8 +1114,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    from cvpr23_lfdm_torch.ops import attention as A
+
     names = ["fused_temporal_layer", "fused_spatial_linear_layer", "warp_video"]
-    built = _build.build(names + ["headpacked_attention"])
+    new_sources = ["packed_attention", "groupnorm_film_silu", "warp_blend"]
+    variants = [("fused_temporal_layer", A.ablation_defines(v)) for v in A.ABLATIONS]
+    built = _build.build(names + ["headpacked_attention"] + new_sources + variants)
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in built["logs"].items()}
     emit({"phase": "env", "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
@@ -817,39 +1130,62 @@ def main() -> int:
     failures: list[str] = []
     totals = check_kernels(failures)
     totals.update(check_headpacked(failures))
+    totals.update(check_new_kernels(failures))
     launches, latency_s = run_serving(failures)
     run_parity(failures)
     run_profile(latency_s)
     train_launches, step_s = run_training(failures)
     run_train_parity(failures)
+    pallas_launches, _ = run_serving(failures, impl="pallas", phase="serving forms")
+    run_serving(failures, impl="xla", phase="serving forms")
+    run_forms_parity(failures)
+    norm_launches = run_fused_norm(failures)
+    ablate_launches, ablate_entry = run_ablate(failures)
+    warp_launches = run_bench_warp(failures, totals)
+    totals["fused_temporal_layer_ablate"] = ablate_entry
 
-    source = {"fused_temporal_layer": "cvpr23_lfdm_torch/csrc/fused_temporal_layer.cu",
-              "fused_spatial_linear_layer": "cvpr23_lfdm_torch/csrc/fused_spatial_linear_layer.cu",
-              "warp_video": "cvpr23_lfdm_torch/csrc/warp_video.cu",
-              "headpacked_attention_fwd": "cvpr23_lfdm_torch/csrc/headpacked_attention.cu",
-              "headpacked_attention_bwd": "cvpr23_lfdm_torch/csrc/headpacked_attention.cu"}
-    replaces = {"fused_temporal_layer": "cvpr23_lfdm_tpu/ops/attention_pallas.py:590",
-                "fused_spatial_linear_layer": "cvpr23_lfdm_tpu/ops/attention_pallas.py:745",
-                "warp_video": "cvpr23_lfdm_tpu/ops/warp_pallas.py:440",
-                "headpacked_attention_fwd": "cvpr23_lfdm_tpu/ops/attention_pallas.py:311",
-                "headpacked_attention_bwd": "cvpr23_lfdm_tpu/ops/attention_pallas.py:366"}
+    csrc = "cvpr23_lfdm_torch/csrc/"
+    jops = "cvpr23_lfdm_tpu/ops/"
+    # name: (source, TPU kernel it replaces, launches of its main path's run, what ms sums over)
+    table = {
+        "fused_temporal_layer": ("fused_temporal_layer.cu", jops + "attention_pallas.py:590",
+                                 launches, "serving video (pallas3)"),
+        "fused_spatial_linear_layer": ("fused_spatial_linear_layer.cu", jops + "attention_pallas.py:745",
+                                       launches, "serving video (pallas3)"),
+        "warp_video": ("warp_video.cu", jops + "warp_pallas.py:440", launches, "serving video (pallas3)"),
+        "headpacked_attention_fwd": ("headpacked_attention.cu", jops + "attention_pallas.py:311",
+                                     train_launches, "training step"),
+        "headpacked_attention_bwd": ("headpacked_attention.cu", jops + "attention_pallas.py:366",
+                                     train_launches, "training step"),
+        "packed_temporal_attention": ("packed_attention.cu", jops + "attention_pallas.py:105",
+                                      pallas_launches, "serving video (pallas)"),
+        "groupnorm_film_silu": ("groupnorm_film_silu.cu", jops + "norm_pallas.py:98",
+                                norm_launches, "UNet eval (fused_norm, B=1)"),
+        "warp_onehot": ("warp_blend.cu", jops + "warp_pallas.py:121", warp_launches,
+                        "bench_warp run: one folded call (B*F = 320, blend none) at each decode scale, fp32"),
+        "warp_gather": ("warp_blend.cu", jops + "warp_pallas.py:587", warp_launches,
+                        "bench_warp run: one folded call (B*F = 320, blend none) at 128x128x67, fp32"),
+        "fused_temporal_layer_ablate": ("fused_temporal_layer.cu", "scripts/bench_attn_ablate.py:150",
+                                        ablate_launches, "bench_attn_ablate run; ms: the full build, one layer at [8,40,1024,64]"),
+    }
+    fp32_bound = ("warp_video", "groupnorm_film_silu", "warp_onehot", "warp_gather")
     kernels = []
-    train_names = ["headpacked_attention_fwd", "headpacked_attention_bwd"]
-    for name in names + train_names:
+    for name, (src, replaces, counted, per) in table.items():
         t = totals[name]
-        on_train = name in train_names
         # the sum of the per-call bounds, named by the larger side of the sums
-        b_by = bound(t["bytes"], t["flops"], FP32_FLOPS if name == "warp_video" else BF16_FLOPS)[1]
-        b_ms = t["bound_ms"]
+        b_by = t.get("bound_by") or bound(
+            t["bytes"], t["flops"], FP32_FLOPS if name in fp32_bound else BF16_FLOPS)[1]
+        if counted[name] < 1:
+            failures.append(f"{name}: no launch on its main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": source[name], "replaces": replaces[name],
-            "launches": (train_launches if on_train else launches)[name],
-            "per": "training step" if on_train else "serving video", "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+            "launches": counted[name], "per": per, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": b_by,
             "library_ms": t["library_ms"],
         })
     emit({"kernels": kernels,
-          "per": "one serving video (B=1) or one training step (B=5): sums over its calls, bf16",
+          "per": "ms, plain_ms, bound_ms, library_ms: sums over the calls named in each kernel's `per` "
+                 "(B=1 serving, B=5 training), bf16 unless said",
           "total_s": time.perf_counter() - t0})
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)

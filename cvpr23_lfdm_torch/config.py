@@ -5,10 +5,13 @@ package), so both packages read the same presets. Knobs that only steer
 JAX code paths (`warp_impl`, `warp_tiled_max_res`, `sampler_unroll`) are
 kept for a field-for-field match and are ignored by the port: its decode
 warp is one exact kernel at every scale. `temporal_attn_impl` keeps the JAX
-names: `"pallas3"` is the UNet's forward-only serving form (fused layers),
-`"pallas2"` its differentiable training form (head-packed kernel pair); any
-other value, the default `"xla"` included, lets the entry point choose
-(serving `pallas3`, training `pallas2`; `models/unet3d.py::resolve_attn_impl`).
+names and each names a form of the UNet: `"pallas3"` the forward-only
+serving form (fused layers), `"pallas2"` the differentiable training form
+(head-packed kernel pair), `"pallas"` the forward-only packed-attention form
+and `"xla"` (the default, as in the JAX config) the plain einsum form, which
+launches no attention kernel. Only `"auto"` lets the entry point choose
+(serving `pallas3`, training `pallas2`); an unknown value raises
+(`models/unet3d.py::resolve_attn_impl`).
 
 Replaces the reference's three stacked config mechanisms — YAML model
 configs (config/mug128.yaml), argparse path/seed flags, and
@@ -148,8 +151,8 @@ class DiffusionConfig:
     use_residual_flow: bool = False
     # mixed precision: UNet compute dtype (params/norms/softmax stay fp32)
     compute_dtype: str = "bfloat16"
-    # "pallas3" | "pallas2" name a UNet form; anything else lets the entry
-    # point choose (see module docstring)
+    # "xla" | "pallas" | "pallas2" | "pallas3" name a UNet form; "auto" lets
+    # the entry point choose (see module docstring)
     temporal_attn_impl: str = "xla"
     sampler_unroll: int = 1  # JAX-only knob
 

@@ -20,6 +20,15 @@
 //
 // Layouts: x, out [B, F, HW, C]; gamma [C] fp32; wqkv [C, 3*heads*D];
 // wout [heads*D, C]; bias_flat [B, F, heads*F] fp32; cos/sin [F, 3*heads*D].
+//
+// Ablation builds (timing only, the output is NOT the layer's): compiling
+// with one of -DLFDM_ABLATE_LAYERNORM, _QKV, _ROTARY, _SCORES, _SOFTMAX, _PV,
+// _OUTPROJ removes that stage of the kernel (named after the stages above),
+// so that `full - variant` attributes device time to it. They stand in for
+// the variants of the TPU's scripts/bench_attn_ablate.py (make_kernel, call);
+// its kvbuild, kt and kt_vm variants ablate the TPU kernel's head-tiled K/V
+// construction, which this kernel does not have. Without a define this file
+// compiles to the serving kernel.
 
 #include "common.cuh"
 
@@ -57,14 +66,28 @@ fused_temporal_layer_kernel(const T* __restrict__ x, const float* __restrict__ g
     return x + (((long long)b * F + r % F) * HW + p0 + r / F) * C;
   };
 
+#ifdef LFDM_ABLATE_LAYERNORM
+  for (int e = threadIdx.x; e < R * C; e += kThreads)
+    xn[(e / C) * ldx + e % C] = to_f<T>(row_ptr(e / C)[e % C]);
+  __syncthreads();
+#else
   layer_norm_rows<T>(row_ptr, R, C, gamma, eps, xn, ldx);
+#endif
   for (int e = threadIdx.x; e < R * C; e += kThreads) acc[e] = 0.f;
 
   for (int g = 0; g < heads; ++g) {
+#ifdef LFDM_ABLATE_QKV
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * 3 * D; e += kThreads)
+      hb[(e / (3 * D)) * HS + e % (3 * D)] = xn[(e / (3 * D)) * ldx + e % C];
+    __syncthreads();
+#else
     block_gemm<T, 4, false>(xn, ldx, R, C, wqkv, 3 * hd, 3 * D, QkvCols{hd, g}, hb, HS, Bs);
+#endif
 
     // rotary on interleaved pairs: (a0, a1) -> (a0 c0 - a1 s0, a1 c1 + a0 s1);
     // the v columns have cos 1, sin 0. Rounded to T as the Pallas kernel does.
+#ifndef LFDM_ABLATE_ROTARY
     for (int e = threadIdx.x; e < R * (3 * D / 2); e += kThreads) {
       const int r = e / (3 * D / 2), n = 2 * (e % (3 * D / 2));
       const long long t = (long long)(r % F) * 3 * hd + QkvCols{hd, g}(n);
@@ -73,6 +96,7 @@ fused_temporal_layer_kernel(const T* __restrict__ x, const float* __restrict__ g
       hb[r * HS + n + 1] = rnd<T>(a1 * to_f<T>(cos_t[t + 1]) + a0 * to_f<T>(sin_t[t + 1]));
     }
     __syncthreads();
+#endif
 
     // attention: one warp per query row (p, i); lanes hold keys j and j+32
     for (int r = warp; r < R; r += kThreads / 32) {
@@ -87,27 +111,46 @@ fused_temporal_layer_kernel(const T* __restrict__ x, const float* __restrict__ g
         if (j < F) {
           const float* k = hb + (p * F + j) * HS + D;
           float d = 0.f;
+#ifdef LFDM_ABLATE_SCORES
+          d = q[0] + k[0];
+#else
 #pragma unroll
           for (int t = 0; t < D; ++t) d = fmaf(q[t], k[t], d);
+#endif
           s[h] = d + bias[j];
         }
       }
+#ifdef LFDM_ABLATE_SOFTMAX
+      const float e0 = lane < F ? s[0] : 0.f;
+      const float e1 = lane + 32 < F ? s[1] : 0.f;
+      const float den = 1.f;
+#else
       const float m = warp_max(fmaxf(s[0], s[1]));
       const float e0 = lane < F ? rnd<T>(expf(s[0] - m)) : 0.f;
       const float e1 = lane + 32 < F ? rnd<T>(expf(s[1] - m)) : 0.f;
       const float den = fmaxf(warp_sum(e0 + e1), 1.17549435e-38f);
+#endif
       float o = 0.f;
+#ifdef LFDM_ABLATE_PV
+      o = e0 + e1 + hb[r * HS + 2 * D + lane];
+#else
       for (int j = 0; j < F; ++j) {
         const float ej = __shfl_sync(kFull, j < 32 ? e0 : e1, j & 31);
         o = fmaf(ej, hb[(p * F + j) * HS + 2 * D + lane], o);
       }
+#endif
       __syncwarp();
       hb[r * HS + lane] = rnd<T>(o / den);  // this row's q is no longer read
     }
     __syncthreads();
 
+#ifdef LFDM_ABLATE_OUTPROJ
+    for (int e = threadIdx.x; e < R * C; e += kThreads) acc[e] += hb[(e / C) * HS + e % D];
+    __syncthreads();
+#else
     block_gemm<T, 4, true>(hb, HS, R, D, wout + (long long)g * D * C, C, C, Identity{}, acc,
                            C, Bs);
+#endif
   }
 
   for (int e = threadIdx.x; e < R * C; e += kThreads) {

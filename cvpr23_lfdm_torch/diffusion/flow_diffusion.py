@@ -38,8 +38,11 @@ def _unfold(x: torch.Tensor, b: int) -> torch.Tensor:
     return x.reshape((b, -1) + x.shape[1:])
 
 
-def build_unet(lfae_cfg: LFAEConfig, cfg: DiffusionConfig, training: bool) -> Unet3D:
-    """The denoiser of a config, freshly initialised, on the CPU."""
+def build_unet(lfae_cfg: LFAEConfig, cfg: DiffusionConfig, training: bool,
+               fused_norm: bool | None = None) -> Unet3D:
+    """The denoiser of a config, freshly initialised, on the CPU, in the
+    form `cfg.temporal_attn_impl` names (`"auto"`: `pallas2` for training,
+    `pallas3` for serving; :func:`models.unet3d.resolve_attn_impl`)."""
     g = lfae_cfg.generator
     return Unet3D(
         dim=cfg.dim, cond_dim=cfg.cond_dim, dim_mults=tuple(cfg.dim_mults),
@@ -49,6 +52,7 @@ def build_unet(lfae_cfg: LFAEConfig, cfg: DiffusionConfig, training: bool) -> Un
         dtype=_DTYPES[cfg.compute_dtype],
         fea_channels=min(g.max_features, g.block_expansion * (2 ** g.num_down_blocks)),
         temporal_attn_impl=resolve_attn_impl(cfg.temporal_attn_impl, training),
+        fused_norm=fused_norm,
     )
 
 
@@ -56,13 +60,16 @@ class FlowDiffusion(nn.Module):
     """Frozen LFAE + conditional 3D UNet on `device` (the CUDA card unless
     `device` says otherwise), all in eval mode.
 
-    `training=False` (serving): the generator without its flow predictor
-    and the UNet in its forward-only serving form, nothing requires a
-    gradient. `training=True`: also the region and background predictors
-    and the generator's pixelwise flow predictor (frozen), and the UNet in
-    its differentiable training form with trainable parameters. The
-    config's `temporal_attn_impl` can name a form explicitly
-    (:func:`models.unet3d.resolve_attn_impl`)."""
+    `training=False` (serving): the generator without its flow predictor,
+    nothing requires a gradient. `training=True`: also the region and
+    background predictors and the generator's pixelwise flow predictor
+    (frozen), and the UNet's parameters trainable. The UNet takes the form
+    the config's `temporal_attn_impl` names (`xla`, `pallas`, `pallas2`,
+    `pallas3`); `"auto"` gives serving the forward-only `pallas3` form and
+    training the differentiable `pallas2` form
+    (:func:`models.unet3d.resolve_attn_impl`). Training needs a
+    differentiable form (`pallas2` or `xla`): the kernels of the others
+    raise when a gradient is asked of them on the card."""
 
     def __init__(self, lfae_cfg: LFAEConfig, cfg: DiffusionConfig, device=None,
                  training: bool = False):

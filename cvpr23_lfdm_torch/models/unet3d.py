@@ -1,6 +1,6 @@
 """Conditional 3D UNet, the denoiser (counterpart of
-`cvpr23_lfdm_tpu/models/unet3d.py::Unet3D`), in a serving and a training
-form chosen by `temporal_attn_impl`, named as in the JAX package:
+`cvpr23_lfdm_tpu/models/unet3d.py::Unet3D`), in the four forms of the JAX
+package, chosen by `temporal_attn_impl` and named as there:
 
 * `"pallas3"`, the serving form (forward-only): every PreNorm
   temporal-attention layer is one :func:`ops.attention.fused_temporal_layer`
@@ -10,11 +10,21 @@ form chosen by `temporal_attn_impl`, named as in the JAX package:
   the temporal attention as `to_qkv` ->
   :func:`ops.attention.headpacked_temporal_attention` (forward and backward
   kernels) -> `to_out`, and the linear attention unfused in plain PyTorch.
+* `"pallas"` (forward-only): `to_qkv` -> rotary and q-scale in the qkv
+  dtype -> :func:`ops.attention.packed_temporal_attention` -> `to_out`; the
+  linear attention unfused.
+* `"xla"` (differentiable, no kernel): the temporal attention as the JAX
+  model's einsums, the scores kept in the compute dtype under bf16; the
+  linear attention unfused.
 
-Both forms have the same parameters, so one state dict loads into either.
-:func:`resolve_attn_impl` maps a config value to a form as the JAX CLIs'
-`resolve_attn_impl` does on a TPU: serving gets `pallas3`, training
-`pallas2`, unless the config names one of the two.
+`fused_norm=True` (any form, forward-only) makes every `Block` one
+:func:`ops.norm.groupnorm_film_silu` after its convolution.
+
+All forms have the same parameters, so one state dict loads into each. In
+fp32 they agree to ~1e-4; in bf16 they round at different points.
+:func:`resolve_attn_impl` maps a config value to a form: a value that names
+a form gives that form, and only `"auto"` lets the entry point choose
+(serving `pallas3`, training `pallas2`, as the JAX CLIs do on a TPU).
 
 Layout `[B, F, H, W, C]`; the "(1, k, k)" pseudo-3D convs are 2D convs over
 the folded `B*F` batch. Module and parameter names follow
@@ -37,20 +47,24 @@ from torch import nn
 
 from cvpr23_lfdm_torch.models.blocks import Conv2d, Dense
 from cvpr23_lfdm_torch.ops import attention as attn_ops
+from cvpr23_lfdm_torch.ops import norm as norm_ops
 
 
-ATTN_IMPLS = ("pallas2", "pallas3")
+ATTN_IMPLS = ("xla", "pallas", "pallas2", "pallas3")
 
 
 def resolve_attn_impl(value: str, training: bool) -> str:
-    """The UNet form for a config's `temporal_attn_impl`: `pallas2` or
-    `pallas3` (an `_interpret` suffix is dropped) as named; any other value
-    (`xla`, `auto`, ...: the port has no einsum form) lets the entry point
-    choose: `pallas2` for training, `pallas3` for serving."""
-    for impl in ATTN_IMPLS:
-        if value.startswith(impl):
-            return impl
-    return "pallas2" if training else "pallas3"
+    """The UNet form for a config's `temporal_attn_impl`. A value that
+    names a form (`xla`, `pallas`, `pallas2`, `pallas3`; the JAX package's
+    `_interpret` suffix is dropped) gives that form. Only `"auto"` lets the
+    entry point choose: `pallas2` for training, `pallas3` for serving. Any
+    other value raises."""
+    if value == "auto":
+        return "pallas2" if training else "pallas3"
+    impl = value.removesuffix("_interpret")
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"temporal_attn_impl {value!r}: not 'auto' nor one of {ATTN_IMPLS}")
+    return impl
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -118,19 +132,34 @@ class ChannelLayerNorm(nn.Module):
         return (x - mean.to(x.dtype)) * inv * self.gamma.to(x.dtype)
 
 
+def _rotary_freqs(dim_head: int, n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved rotary tables `[n, dim_head]` fp32 over the first
+    min(32, dim_head) channels (cos 1, sin 0 beyond)."""
+    rot = min(32, dim_head)
+    freqs = 1.0 / (10000.0 ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+    ang = np.repeat(np.outer(np.arange(n, dtype=np.float64), freqs), 2, axis=-1)
+    cos, sin = np.ones((n, dim_head)), np.zeros((n, dim_head))
+    cos[:, :rot], sin[:, :rot] = np.cos(ang), np.sin(ang)
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return as_t(cos), as_t(sin)
+
+
 class TemporalAttention(nn.Module):
     """Attention over the frame axis, batched over pixels.
 
     `impl="pallas3"` (serving): the whole PreNorm layer (LN + qkv + rotary +
     attention + out-proj + residual) is one forward-only fused kernel and
-    `forward` takes the raw `x` with `prenorm_gamma`. `impl="pallas2"`
-    (training): `to_qkv` -> differentiable head-packed attention kernel ->
-    `to_out` on the normalized input."""
+    `forward` takes the raw `x` with `prenorm_gamma`. The other forms work
+    on the normalized input as `to_qkv` -> attention -> `to_out`:
+    `"pallas2"` (training) through the differentiable head-packed kernel,
+    `"pallas"` through rotary in the qkv dtype and the forward-only packed
+    kernel, `"xla"` through plain einsums."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
-                 impl: str = "pallas3"):
+                 impl: str = "xla"):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.impl = impl
         self.fused = impl == "pallas3"
         hidden = heads * dim_head
         self.to_qkv = Dense(dim, 3 * hidden, bias=False, dtype=dtype)
@@ -139,8 +168,12 @@ class TemporalAttention(nn.Module):
     def forward(self, x, prenorm_gamma=None, pos_bias=None, focus_present_mask=None):
         b, f, h, w, c = x.shape
         cdt = self.dtype
+        if self.impl == "xla":
+            return self._einsum_attention(x, pos_bias, focus_present_mask)
         if pos_bias is None:
             pos_bias = torch.zeros((self.heads, f, f), device=x.device)
+        if self.impl == "pallas":
+            return self._packed_attention(x, pos_bias, focus_present_mask)
         bias_flat = attn_ops.build_bias_flat(pos_bias, b, f, focus_present_mask)
         cos_t, sin_t = attn_ops.rotary_tables(
             f, self.heads, self.dim_head, self.dim_head ** -0.5, cdt, x.device
@@ -159,14 +192,55 @@ class TemporalAttention(nn.Module):
         )
         return out.reshape(b, f, h, w, c).to(x.dtype)
 
+    def _packed_attention(self, x, pos_bias, focus_present_mask):
+        """`pallas`: rotary and q-scale as one elementwise pass in the qkv
+        dtype, then the packed kernel on `[B, HW, F, 3hd]`."""
+        b, f, h, w, _ = x.shape
+        hw = h * w
+        qkv = self.to_qkv(x).reshape(b, f, hw, -1)
+        pack = attn_ops.pick_pack(hw, f)
+        bias = attn_ops.build_bias(pos_bias, b, pack, f, focus_present_mask)
+        cos_t, sin_t = attn_ops.rotary_tables(
+            f, self.heads, self.dim_head, self.dim_head ** -0.5, qkv.dtype, x.device)
+        qkv = qkv * cos_t[None, :, None, :] + attn_ops.rotate_pairs(qkv) * sin_t[None, :, None, :]
+        out = attn_ops.packed_temporal_attention(
+            qkv.swapaxes(1, 2).contiguous(), bias, self.heads, self.dim_head, pack)
+        return self.to_out(out.swapaxes(1, 2).reshape(b, f, h, w, -1))
+
+    def _einsum_attention(self, x, pos_bias, focus_present_mask):
+        """`xla`: the JAX model's einsum form. Under a lower-precision
+        compute dtype the scores are accumulated to that dtype and the
+        softmax input is that rounded value; the softmax itself is fp32."""
+        b, f, h, w, _ = x.shape
+        heads, d = self.heads, self.dim_head
+        qkv = self.to_qkv(x).reshape(b, f, h * w, 3, heads, d)
+        q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        q = q * (d ** -0.5)
+        cos, sin = (t.to(q.dtype)[None, :, None, None, :] for t in _rotary_freqs(d, f, x.device))
+        q = q * cos + attn_ops.rotate_pairs(q) * sin
+        k = k * cos + attn_ops.rotate_pairs(k) * sin
+        sim = torch.einsum("bixhd,bjxhd->bxhij", q, k)
+        if pos_bias is not None:
+            sim = sim + pos_bias[None, None].to(sim.dtype)
+        if focus_present_mask is not None:
+            eye = torch.eye(f, dtype=torch.bool, device=x.device)
+            keep = eye | ~focus_present_mask[:, None, None, None, None]
+            lowest = torch.full((), torch.finfo(torch.float32).min, device=x.device).to(sim.dtype)
+            sim = torch.where(keep, sim, lowest)
+        sim = sim - sim.amax(dim=-1, keepdim=True).detach()
+        attn = torch.softmax(sim.float(), dim=-1).to(v.dtype)
+        out = torch.einsum("bxhij,bjxhd->bixhd", attn, v)
+        return self.to_out(out.reshape(b, f, h, w, heads * d))
+
 
 class SpatialLinearAttention(nn.Module):
     """Softmax-kernel linear attention per frame: one forward-only fused
     PreNorm layer (`impl="pallas3"`), or its differentiable unfused form in
-    plain PyTorch on the normalized input (training; it reaches no kernel)."""
+    plain PyTorch on the normalized input (every other form; it reaches no
+    kernel)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
-                 impl: str = "pallas3"):
+                 impl: str = "xla"):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
         self.fused = impl == "pallas3"
@@ -217,7 +291,7 @@ class SpatialAttention(nn.Module):
     fused = False
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
-                 impl: str = "pallas3"):
+                 impl: str = "xla"):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
@@ -241,7 +315,7 @@ class PreNormResidual(nn.Module):
     """x + attn(LN(x)); fused attention layers take the LN gamma instead."""
 
     def __init__(self, dim: int, attn_cls, heads: int, dim_head: int, dtype=torch.float32,
-                 impl: str = "pallas3"):
+                 impl: str = "xla"):
         super().__init__()
         self.norm = ChannelLayerNorm(dim)
         self.attn = attn_cls(dim, heads, dim_head, dtype=dtype, impl=impl)
@@ -286,15 +360,24 @@ class GroupNorm(nn.Module):
 
 
 class Block(nn.Module):
-    """conv(1,3,3) -> GroupNorm(8) -> FiLM -> SiLU."""
+    """conv(1,3,3) -> GroupNorm(8) -> FiLM -> SiLU. With `fused_norm` the
+    chain after the convolution is one forward-only
+    :func:`ops.norm.groupnorm_film_silu` on the GroupNorm's parameters."""
 
-    def __init__(self, cin: int, cout: int, groups: int = 8, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, groups: int = 8, dtype=torch.float32,
+                 fused_norm: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.fused_norm = dtype, fused_norm
         self.proj = Conv2plus1d(cin, cout, 3, dtype=dtype)
         self.norm = GroupNorm(cout, groups, dtype=dtype)
 
     def forward(self, x, scale_shift=None):
+        if self.fused_norm:
+            x = self.proj(x)
+            scale, shift = scale_shift if scale_shift is not None else (None, None)
+            return norm_ops.groupnorm_film_silu(
+                x, self.norm.weight, self.norm.bias, scale, shift,
+                groups=self.norm.groups, eps=self.norm.eps)
         x = self.norm(self.proj(x))
         if scale_shift is not None:
             scale, shift = scale_shift
@@ -306,12 +389,12 @@ class ResnetBlock(nn.Module):
     """Two FiLM blocks + 1x1x1 residual conv (a Dense on channel-last)."""
 
     def __init__(self, cin: int, cout: int, cond_dim: int | None, groups: int = 8,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fused_norm: bool = False):
         super().__init__()
         self.dtype = dtype
         self.mlp = Dense(cond_dim, 2 * cout, dtype=dtype) if cond_dim else None
-        self.block1 = Block(cin, cout, groups, dtype)
-        self.block2 = Block(cout, cout, groups, dtype)
+        self.block1 = Block(cin, cout, groups, dtype, fused_norm)
+        self.block2 = Block(cout, cout, groups, dtype, fused_norm)
         self.res_conv = Dense(cin, cout, dtype=dtype) if cin != cout else None
 
     def forward(self, x, cond_emb=None):
@@ -374,11 +457,12 @@ class Unet3D(nn.Module):
                  attn_heads: int = 8, attn_dim_head: int = 32, learn_null_cond: bool = False,
                  use_deconv: bool = True, use_final_activation: bool = False,
                  dtype=torch.float32, fea_channels: int = 256,
-                 temporal_attn_impl: str = "pallas3"):
+                 temporal_attn_impl: str = "xla", fused_norm: bool | None = None):
         super().__init__()
         if temporal_attn_impl not in ATTN_IMPLS:
             raise ValueError(f"temporal_attn_impl {temporal_attn_impl!r} not in {ATTN_IMPLS}")
         impl = self.temporal_attn_impl = temporal_attn_impl
+        fn = self.fused_norm = bool(fused_norm)  # None is False, as in the JAX model
         self.dim, self.cond_dim, self.dtype = dim, cond_dim, dtype
         self.learn_null_cond = learn_null_cond
         self.use_final_activation = use_final_activation
@@ -399,8 +483,8 @@ class Unet3D(nn.Module):
         self.in_out = list(zip(dims[:-1], dims[1:]))
         n = len(self.in_out)
         for ind, (din, dout) in enumerate(self.in_out):
-            setattr(self, f"downs_{ind}_block1", ResnetBlock(din, dout, emb_dim, g, dt))
-            setattr(self, f"downs_{ind}_block2", ResnetBlock(dout, dout, emb_dim, g, dt))
+            setattr(self, f"downs_{ind}_block1", ResnetBlock(din, dout, emb_dim, g, dt, fn))
+            setattr(self, f"downs_{ind}_block2", ResnetBlock(dout, dout, emb_dim, g, dt, fn))
             setattr(self, f"downs_{ind}_spatial_attn",
                     PreNormResidual(dout, SpatialLinearAttention, heads, 32, dt, impl))
             setattr(self, f"downs_{ind}_temporal_attn",
@@ -408,22 +492,22 @@ class Unet3D(nn.Module):
             if ind < n - 1:
                 setattr(self, f"downs_{ind}_downsample", Downsample(dout, dt))
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock(mid, mid, emb_dim, g, dt)
+        self.mid_block1 = ResnetBlock(mid, mid, emb_dim, g, dt, fn)
         self.mid_spatial_attn = PreNormResidual(mid, SpatialAttention, heads, 32, dt, impl)
         self.mid_temporal_attn = PreNormResidual(mid, TemporalAttention, heads, attn_dim_head, dt, impl)
-        self.mid_block2 = ResnetBlock(mid, mid, emb_dim, g, dt)
+        self.mid_block2 = ResnetBlock(mid, mid, emb_dim, g, dt, fn)
         for ind, (din, dout) in enumerate(reversed(self.in_out)):
-            setattr(self, f"ups_{ind}_block1", ResnetBlock(dout * 2, din, emb_dim, g, dt))
-            setattr(self, f"ups_{ind}_block2", ResnetBlock(din, din, emb_dim, g, dt))
+            setattr(self, f"ups_{ind}_block1", ResnetBlock(dout * 2, din, emb_dim, g, dt, fn))
+            setattr(self, f"ups_{ind}_block2", ResnetBlock(din, din, emb_dim, g, dt, fn))
             setattr(self, f"ups_{ind}_spatial_attn",
                     PreNormResidual(din, SpatialLinearAttention, heads, 32, dt, impl))
             setattr(self, f"ups_{ind}_temporal_attn",
                     PreNormResidual(din, TemporalAttention, heads, attn_dim_head, dt, impl))
             if ind < n - 1:
                 setattr(self, f"ups_{ind}_upsample", Upsample(din, use_deconv, dt))
-        self.final_block = ResnetBlock(dim * 2, dim, None, g, dt)
+        self.final_block = ResnetBlock(dim * 2, dim, None, g, dt, fn)
         self.final_conv = Dense(dim, 2)
-        self.occlusion_block = ResnetBlock(dim * 2, dim, None, g, dt)
+        self.occlusion_block = ResnetBlock(dim * 2, dim, None, g, dt, fn)
         self.occlusion_conv = Dense(dim, 1)
 
     def forward(self, x, time, cond=None, null_cond_mask=None,

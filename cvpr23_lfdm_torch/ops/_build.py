@@ -6,6 +6,10 @@ functions that take raw pointers, sizes and a stream, and return
 A library is built at its first use into `cvpr23_lfdm_torch/build/`, named
 after a hash of its source so an edited source is rebuilt, and is loaded
 once per process. A kernel that does not build raises.
+
+A source can be built under preprocessor defines (`-D<NAME>`): each set of
+defines is a library of its own, keyed by the defines as well, so the
+ablation variants of one source live beside its plain build.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,9 +41,10 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    """Library path, keyed by the source, the shared headers and the flags."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def _target(name: str, defines: tuple[str, ...] = ()) -> str:
+    """Library path, keyed by the source, the shared headers, the flags and
+    the preprocessor defines."""
+    h = hashlib.sha1(" ".join([*NVCC_FLAGS, *(f"-D{d}" for d in defines)]).encode())
     headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
     for n in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, n), "rb") as f:
@@ -47,14 +52,15 @@ def _target(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str) -> tuple[subprocess.Popen, str, str] | None:
+def _start(name: str, defines: tuple[str, ...] = ()) -> tuple[subprocess.Popen, str, str] | None:
     """Start nvcc for one source unless its library is already built."""
-    out = _target(name)
+    out = _target(name, defines)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -74,25 +80,30 @@ def _finish(name: str, started) -> str:
     return log
 
 
-def build(names: list[str]) -> dict:
-    """Build the named kernels, one `nvcc` per source, all started together.
-    Returns `{"seconds": wall time, "logs": {name: nvcc output}}` (the
-    `-Xptxas -v` register and shared-memory report)."""
+def build(names: list) -> dict:
+    """Build the named kernels, one `nvcc` per library, all started together.
+    An entry is a source name or `(name, (define, ...))`. Returns
+    `{"seconds": wall time, "logs": {label: nvcc output}}` (the `-Xptxas -v`
+    register and shared-memory report), a variant labelled `name[defines]`."""
     t0 = time.perf_counter()
+    jobs = [(n, ()) if isinstance(n, str) else (n[0], tuple(n[1])) for n in names]
+    label = lambda n, d: n if not d else f"{n}[{','.join(d)}]"
     with _lock:
-        started = {n: _start(n) for n in names}
-        logs = {n: _finish(n, s) for n, s in started.items()}
+        started = {label(n, d): (n, _start(n, d)) for n, d in jobs}
+        logs = {key: _finish(n, s) for key, (n, s) in started.items()}
     return {"seconds": time.perf_counter() - t0, "logs": logs}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu` (under `defines`), built
+    first if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            _finish(name, _start(name))
-            lib = ctypes.CDLL(_target(name))
-            _loaded[name] = lib
+            _finish(name, _start(name, key[1]))
+            lib = ctypes.CDLL(_target(name, key[1]))
+            _loaded[key] = lib
     return lib
 
 

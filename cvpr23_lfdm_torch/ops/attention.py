@@ -1,6 +1,6 @@
-"""The UNet's attention kernels: the two fused PreNorm layers of serving and
-the differentiable head-packed temporal attention of training, each with
-its plain version.
+"""The UNet's attention kernels: the two fused PreNorm layers of serving, the
+differentiable head-packed temporal attention of training and the packed
+temporal attention of the `pallas` form, each with its plain version.
 
 Counterparts of `cvpr23_lfdm_tpu/ops/attention_pallas.py`:
 
@@ -16,6 +16,14 @@ Counterparts of `cvpr23_lfdm_tpu/ops/attention_pallas.py`:
   backward `_headpacked_bwd_kernel`): rotary + softmax attention over the F
   frames on the raw `to_qkv` output, a `torch.autograd.Function` whose
   forward and backward are both kernels (`csrc/headpacked_attention.cu`).
+* :func:`packed_temporal_attention` replaces the Pallas
+  `packed_temporal_attention` (`_kernel`): softmax attention over the F
+  frames on a `[B, HW, F, 3hd]` qkv whose rotary and q-scale were applied
+  outside, under the additive bias of :func:`build_bias`
+  (`csrc/packed_attention.cu`; forward-only, as in the JAX package).
+* :func:`fused_temporal_layer_ablated` launches a timing-only build of
+  `csrc/fused_temporal_layer.cu` with one stage removed (the counterpart of
+  the ablated kernels of the JAX package's `scripts/bench_attn_ablate.py`).
 
 The fused layers are forward-only (as in the JAX package): on a CUDA
 tensor they raise when a gradient is asked of them.
@@ -66,6 +74,17 @@ walks a chunk of pixels of one (batch, head) in order, sums `ds` in its own
 `[F, F]` shared-memory tile and writes it out; a second launch adds the
 chunks in index order. No atomics, so a step's gradients
 are the same bit for bit from run to run.
+
+`packed_temporal_attention` on the H100. Bound by bytes like the
+head-packed forward, and built like it (a block of four warps per (pixel,
+head), q, k, v as fp32 rows in shared memory), minus the rotary: in this
+layout a unit's rows are contiguous in F. The TPU kernel packs P pixels
+into one `[P*F, d]` tile and masks the cross-pixel scores with a
+`[P*F, P*F]` bias; the masked entries are exactly 0 after `exp`, so the
+kernel reads only each pixel's own `[F, F]` diagonal block of that bias and
+computes no cross-pixel score. The plain version runs the packed tiles
+against the whole bias, as the TPU kernel does, so the two are held
+together.
 """
 
 from __future__ import annotations
@@ -117,6 +136,38 @@ def build_bias_flat(pos_bias: torch.Tensor, batch: int, f: int,
         eye = torch.eye(f, dtype=torch.bool, device=flat.device).repeat(1, heads)
         self_only = torch.where(eye, flat, torch.full_like(flat, NEG_INF))
         out = torch.where(focus_present_mask[:, None, None], self_only[None], out)
+    return out.contiguous()
+
+
+def pick_pack(hw: int, f: int, target_rows: int = 256) -> int:
+    """Largest power-of-2 P dividing hw with P*F <= target rows."""
+    best = 1
+    p = 1
+    while p <= hw:
+        if hw % p == 0 and p * f <= target_rows:
+            best = p
+        p *= 2
+    return best
+
+
+def build_bias(pos_bias: torch.Tensor, batch: int, pack: int, f: int,
+               focus_present_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Rel-pos bias + block-diagonal mask (+ focus self-only rows) as one
+    additive `[B, heads, P*F, P*F]` fp32 tensor: the bias tiled over the PxP
+    pixel grid, cross-pixel entries NEG_INF; focused batch entries keep only
+    the frame diagonal. Unshifted (unlike :func:`build_bias_flat`)."""
+    heads = pos_bias.shape[0]
+    pf = pack * f
+    dev = pos_bias.device
+    block_mask = torch.kron(torch.eye(pack, device=dev), torch.ones(f, f, device=dev)) > 0
+    tiled = pos_bias.float().repeat(1, pack, pack)  # [h, PF, PF]
+    neg = torch.full_like(tiled, NEG_INF)
+    base = torch.where(block_mask[None], tiled, neg)
+    out = base[None].expand(batch, heads, pf, pf)
+    if focus_present_mask is not None:
+        self_mask = torch.eye(pf, dtype=torch.bool, device=dev)
+        focused = torch.where(self_mask[None], tiled, neg)
+        out = torch.where(focus_present_mask[:, None, None, None], focused[None], out)
     return out.contiguous()
 
 
@@ -223,6 +274,16 @@ def fused_temporal_layer(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
         return fused_temporal_layer_plain(
             x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, heads, dim_head, eps
         )
+    out = _launch_fused_temporal_layer(
+        (), x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, heads, dim_head, eps)
+    fused_temporal_layer.launches += 1
+    return out
+
+
+def _launch_fused_temporal_layer(defines, x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
+                                 heads, dim_head, eps):
+    """Check the arguments and launch `csrc/fused_temporal_layer.cu` as
+    built under `defines` (none: the serving kernel)."""
     b, f, hw, c = x.shape
     hd = heads * dim_head
     _check_layer_args("fused_temporal_layer", x, gamma, wqkv, wout, hd,
@@ -234,7 +295,7 @@ def fused_temporal_layer(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
             or tuple(sin_t.shape) != (f, 3 * hd):
         raise ValueError("fused_temporal_layer: bias or rotary table shape")
     out = torch.empty_like(x)
-    lib = _build.load("fused_temporal_layer")
+    lib = _build.load("fused_temporal_layer", defines)
     name = "launch_fused_temporal_layer_" + _suffix(x.dtype)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
@@ -244,7 +305,36 @@ def fused_temporal_layer(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
         b, f, hw, c, heads, eps, _build.stream(x.device),
     )
     _build.check(lib, name, code)
-    fused_temporal_layer.launches += 1
+    return out
+
+
+# Stages of `csrc/fused_temporal_layer.cu` that an ablation build removes,
+# in the order the kernel runs them.
+ABLATIONS = ("layernorm", "qkv", "rotary", "scores", "softmax", "pv", "outproj")
+
+
+def ablation_defines(stage: str) -> tuple[str, ...]:
+    """The preprocessor defines of the build without `stage`; `"full"` is
+    the serving kernel itself."""
+    if stage == "full":
+        return ()
+    if stage not in ABLATIONS:
+        raise ValueError(f"ablation stage {stage!r} not in {('full',) + ABLATIONS}")
+    return (f"LFDM_ABLATE_{stage.upper()}",)
+
+
+def fused_temporal_layer_ablated(stage, x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
+                                 heads: int, dim_head: int, eps: float = 1e-5):
+    """Timing only: :func:`fused_temporal_layer`'s kernel built without one
+    of its stages (:data:`ABLATIONS`), on a CUDA tensor. Only `"full"`
+    computes the layer (it is the serving kernel, bit for bit); the other
+    outputs mean nothing. `full - variant` attributes device time to the
+    stage. The TPU harness's `kvbuild`, `kt` and `kt_vm` variants ablate the
+    head-tiled K/V of the TPU kernel and have no counterpart here."""
+    out = _launch_fused_temporal_layer(
+        ablation_defines(stage), x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
+        heads, dim_head, eps)
+    fused_temporal_layer_ablated.launches += 1
     return out
 
 
@@ -473,7 +563,84 @@ def headpacked_temporal_attention_plain(qkv, bias_flat, cos_t, sin_t, heads: int
     return _HeadpackedAttention.apply(qkv, bias_flat, cos_t, sin_t, heads, dim_head, False)
 
 
+# ------------------------------------------------ packed attention
+
+
+def packed_temporal_attention_plain(qkv, bias, heads: int, dim_head: int, pack: int):
+    """Plain version of :func:`packed_temporal_attention` (same arguments):
+    P pixels per `[P*F, d]` tile against the whole `[P*F, P*F]` bias, fp32
+    scores and softmax, the probabilities rounded to qkv's dtype before the
+    fp32-accumulated `p.v`."""
+    b, hw, f, _ = qkv.shape
+    hd = heads * dim_head
+    dt = qkv.dtype
+    if hw % pack:
+        raise ValueError(f"packed_temporal_attention: pack {pack} does not divide HW {hw}")
+    pf = pack * f
+    blk = qkv.reshape(b, hw // pack, pf, 3, heads, dim_head).float()
+    q, k, v = blk[..., 0, :, :], blk[..., 1, :, :], blk[..., 2, :, :]
+    s = torch.einsum("bnihd,bnjhd->bnhij", q, k) + bias.float()[:, None]
+    s = s - s.amax(dim=-1, keepdim=True).detach()
+    prob = torch.softmax(s, dim=-1).to(dt).float()
+    o = torch.einsum("bnhij,bnjhd->bnihd", prob, v)
+    return o.to(dt).reshape(b, hw, f, hd)
+
+
+def packed_temporal_attention(qkv, bias, heads: int, dim_head: int, pack: int):
+    """Masked attention over the frame axis, P pixels per tile.
+
+    Args:
+      qkv: `[B, HW, F, 3*heads*d]`, q|k|v on the last axis, rotary and
+        q-scale already applied; bf16 or fp32.
+      bias: `[B, heads, P*F, P*F]` fp32 (:func:`build_bias`): cross-pixel
+        entries must be NEG_INF.
+      pack: P pixels per tile; must divide HW (:func:`pick_pack`).
+
+    Returns `[B, HW, F, heads*d]`. CPU tensors take the plain version; CUDA
+    tensors launch `csrc/packed_attention.cu` (d = 32, F <= 64), which reads
+    only the diagonal `[F, F]` blocks of `bias`, or raise. Forward-only, as
+    the JAX kernel: it raises when a gradient is asked of it on the card.
+    """
+    if qkv.device.type == "cpu":
+        return packed_temporal_attention_plain(qkv, bias, heads, dim_head, pack)
+    name = "packed_temporal_attention"
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {qkv.device}")
+    if qkv.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {qkv.dtype} (want float32 or bfloat16)")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name}: bias {bias.dtype} where float32 is required")
+    if qkv.ndim != 4:
+        raise ValueError(f"{name}: qkv must be [B, HW, F, 3*heads*d], got {tuple(qkv.shape)}")
+    b, hw, f, thd = qkv.shape
+    hd = heads * dim_head
+    if dim_head != 32 or f > 64:
+        raise ValueError(f"{name}: needs d=32, F<=64 (d={dim_head}, F={f})")
+    if pack < 1 or hw % pack:
+        raise ValueError(f"{name}: pack {pack} does not divide HW {hw}")
+    if thd != 3 * hd or tuple(bias.shape) != (b, heads, pack * f, pack * f):
+        raise ValueError(f"{name}: shapes {tuple(qkv.shape)} {tuple(bias.shape)}")
+    if bias.device != qkv.device:
+        raise ValueError(f"{name}: arguments on different devices")
+    if not (qkv.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"{name}: arguments must be contiguous")
+    _build.require_no_grad(name, qkv, bias)
+    out = torch.empty((b, hw, f, hd), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load("packed_attention")
+    fname = "launch_packed_attention_" + _suffix(qkv.dtype)
+    fn = getattr(lib, fname)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    code = fn(_build.ptr(qkv), _build.ptr(bias), _build.ptr(out), b, f, hw, heads, pack,
+              _build.stream(qkv.device))
+    _build.check(lib, fname, code)
+    packed_temporal_attention.launches += 1
+    return out
+
+
 fused_temporal_layer.launches = 0
+fused_temporal_layer_ablated.launches = 0
+packed_temporal_attention.launches = 0
 fused_spatial_linear_layer.launches = 0
 headpacked_temporal_attention.launches = 0
 headpacked_temporal_attention.backward_launches = 0

@@ -1,4 +1,5 @@
-"""Bilinear backward warp of one source per video at per-frame grids.
+"""Bilinear backward warps: one source per video at per-frame grids, and
+one source per grid fused with an occlusion blend.
 
 Counterpart of `cvpr23_lfdm_tpu/ops/warp.py::grid_sample` (the plain
 version) and of the Pallas kernel `cvpr23_lfdm_tpu/ops/warp_pallas.py::
@@ -19,6 +20,17 @@ writes); out-of-image corners weigh zero; it accumulates in fp32 and
 writes the source's dtype. It is exact for every flow, so it has no
 windows, tiles or fit check, and the generator uses it at every decode
 scale.
+
+:func:`warp_onehot` and :func:`warp_gather` are the counterparts of the
+Pallas kernels of the same names in `warp_pallas.py`: one source per grid,
+fused with a blend (none, `* occ`, `* occ + prev * (1 - occ)`), everything
+cast to fp32 and an fp32 result. On the TPU they are two formulations of
+one function (a dense one-hot `[HW, HW]` matrix product, which caps `H*W`
+at 1024 to fit VMEM, and a lane gather without a cap); on the H100 both
+names launch one kernel, `csrc/warp_blend.cu` (one thread per output
+element, the blend in its epilogue), and neither has a size cap. So the
+JAX package's `tiled_max_res` / `MAX_HW` limits have no counterpart here.
+:func:`warp_blend_plain` is their plain version.
 """
 
 from __future__ import annotations
@@ -107,4 +119,97 @@ def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_BLENDS = {"none": 0, "occlusion": 1, "previous": 2}
+
+
+def _blend_mode(occlusion, previous, blend):
+    if blend is None:
+        blend = "previous" if previous is not None else (
+            "occlusion" if occlusion is not None else "none")
+    if blend not in _BLENDS:
+        raise ValueError(f"warp: blend {blend!r} not in {tuple(_BLENDS)}")
+    if (blend != "none" and occlusion is None) or (blend == "previous" and previous is None):
+        raise ValueError(f"warp: blend {blend!r} without its occlusion or previous tensor")
+    return blend
+
+
+def warp_blend_plain(image, grid, occlusion=None, previous=None, blend=None):
+    """Plain version of :func:`warp_onehot` / :func:`warp_gather` (same
+    arguments): :func:`grid_sample` on fp32 casts, then the blend; fp32."""
+    blend = _blend_mode(occlusion, previous, blend)
+    warped = grid_sample(image.float(), grid.float())
+    if blend == "none":
+        return warped
+    occ = occlusion.float()
+    if blend == "occlusion":
+        return warped * occ
+    return warped * occ + previous.float() * (1.0 - occ)
+
+
+def _warp_blend(wrapper, image, grid, occlusion, previous, blend):
+    name = wrapper.__name__
+    if image.device.type == "cpu":
+        return warp_blend_plain(image, grid, occlusion, previous, blend)
+    if image.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {image.device}")
+    blend = _blend_mode(occlusion, previous, blend)
+    if image.ndim != 4:
+        raise ValueError(f"{name}: image must be [B, H, W, C], got {tuple(image.shape)}")
+    b, h, w, c = image.shape
+    used = {"image": (image, (b, h, w, c)), "grid": (grid, (b, h, w, 2))}
+    if blend != "none":
+        used["occlusion"] = (occlusion, (b, h, w, 1))
+    if blend == "previous":
+        used["previous"] = (previous, (b, h, w, c))
+    for key, (t, shape) in used.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != {shape}")
+        if t.device != image.device:
+            raise ValueError(f"{name}: arguments on different devices")
+        if not t.is_floating_point():
+            raise TypeError(f"{name}: {key} dtype {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: arguments must be contiguous")
+    _build.require_no_grad(name, *(t for t, _ in used.values()))
+    f32 = {key: t.float() for key, (t, _) in used.items()}  # as the TPU wrappers cast
+    out = torch.empty((b, h, w, c), dtype=torch.float32, device=image.device)
+    lib = _build.load("warp_blend")
+    fn = lib.launch_warp_blend_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    null = ctypes.c_void_p(None)
+    ptr = lambda key: _build.ptr(f32[key]) if key in f32 else null
+    code = fn(ptr("image"), ptr("grid"), ptr("occlusion"), ptr("previous"), _build.ptr(out),
+              b, h, w, c, _BLENDS[blend], _build.stream(image.device))
+    _build.check(lib, "launch_warp_blend_f32", code)
+    wrapper.launches += 1
+    return out
+
+
+def warp_onehot(image, grid, occlusion=None, previous=None, blend=None):
+    """Bilinear warp fused with an optional occlusion blend.
+
+    Args:
+      image: `[B, H, W, C]` source features.
+      grid: `[B, H, W, 2]` backward warp grid, (x, y) in [-1, 1]; the output
+        resolution equals the input's.
+      occlusion: optional `[B, H, W, 1]`; previous: optional `[B, H, W, C]`
+        blend partner (`warped * occ + previous * (1 - occ)`).
+      blend: `"none"`, `"occlusion"` or `"previous"`; inferred when None.
+
+    Returns `[B, H, W, C]` fp32. CPU tensors take the plain version; CUDA
+    tensors launch `csrc/warp_blend.cu` (forward-only) or raise. No cap on
+    `H*W`, unlike the TPU kernel of this name.
+    """
+    return _warp_blend(warp_onehot, image, grid, occlusion, previous, blend)
+
+
+def warp_gather(image, grid, occlusion=None, previous=None, blend=None):
+    """Same function and same kernel as :func:`warp_onehot` (two
+    formulations on the TPU, one on the H100); counted on its own."""
+    return _warp_blend(warp_gather, image, grid, occlusion, previous, blend)
+
+
 warp_video.launches = 0
+warp_onehot.launches = 0
+warp_gather.launches = 0

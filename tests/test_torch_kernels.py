@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from cvpr23_lfdm_torch.ops import attention as A
+from cvpr23_lfdm_torch.ops import norm as N
 from cvpr23_lfdm_torch.ops import warp as W
 
 TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
@@ -180,3 +181,147 @@ def test_forward_only_kernels_raise_when_a_gradient_is_asked(dev):
     # the plain versions stay differentiable
     A.fused_temporal_layer_plain(x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32).sum().backward()
     assert wqkv.grad is not None
+
+
+# ------------------------------------------------ packed attention, norm, warp+blend, ablation
+
+
+def _packed_inputs(dev, dtype, b, hw, f, heads, focus, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, hw, f, 3 * heads * 32, generator=g, device=dev).to(dtype)
+    pos_bias = torch.randn(heads, f, f, generator=g, device=dev)
+    mask = torch.tensor([True] + [False] * (b - 1), device=dev) if focus else None
+    pack = A.pick_pack(hw, f)
+    return qkv, A.build_bias(pos_bias, b, pack, f, mask), pack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hw,f,focus", [(1, 64, 40, False), (2, 16, 40, True), (2, 6, 7, True),
+                                          (1, 8, 64, False)])
+def test_packed_attention_kernel(dev, dtype, b, hw, f, focus):
+    heads = 8
+    qkv, bias, pack = _packed_inputs(dev, dtype, b, hw, f, heads, focus)
+    before = A.packed_temporal_attention.launches
+    with torch.no_grad():
+        out = A.packed_temporal_attention(qkv, bias, heads, 32, pack)
+    assert A.packed_temporal_attention.launches == before + 1
+    assert out.shape == (b, hw, f, heads * 32) and out.dtype == dtype
+    _close(out, A.packed_temporal_attention_plain(qkv, bias, heads, 32, pack), dtype)
+
+
+@pytest.mark.cuda
+def test_packed_attention_wrapper_checks_arguments(dev):
+    qkv, bias, pack = _packed_inputs(dev, torch.float32, 1, 8, 8, 2, False)
+    with pytest.raises(ValueError):
+        A.packed_temporal_attention(qkv, bias, 4, 16, pack)  # d != 32
+    with pytest.raises(TypeError):
+        A.packed_temporal_attention(qkv, bias.double(), 2, 32, pack)
+    with pytest.raises(TypeError):
+        A.packed_temporal_attention(qkv.half(), bias, 2, 32, pack)
+    with pytest.raises(ValueError):
+        A.packed_temporal_attention(qkv.transpose(1, 2), bias, 2, 32, pack)
+    with pytest.raises(ValueError):
+        A.packed_temporal_attention(qkv, bias, 2, 32, 3)  # pack does not divide HW
+    with pytest.raises(RuntimeError, match="forward-only"):
+        A.packed_temporal_attention(qkv.clone().requires_grad_(), bias, 2, 32, pack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("shape,groups", [((1, 40, 8, 8, 64), 8), ((2, 5, 4, 4, 512), 8),
+                                          ((2, 3, 5, 7, 24), 4), ((1, 2, 3, 3, 768), 8)])
+def test_groupnorm_film_silu_kernel(dev, dtype, film, shape, groups):
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, c = shape[0], shape[-1]
+    x = (1.5 * torch.randn(*shape, generator=g, device=dev) + 0.3).to(dtype)
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    beta = 0.2 * torch.randn(c, generator=g, device=dev)
+    ss = tuple(torch.randn(b, 1, 1, 1, c, generator=g, device=dev) for _ in range(2)) if film else ()
+    before = N.groupnorm_film_silu.launches
+    with torch.no_grad():
+        out = N.groupnorm_film_silu(x, gamma, beta, *ss, groups=groups)
+        again = N.groupnorm_film_silu(x, gamma, beta, *ss, groups=groups)
+    assert N.groupnorm_film_silu.launches == before + 2
+    assert torch.equal(out, again)  # no atomics: the same bits
+    _close(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss, groups=groups), dtype)
+
+
+@pytest.mark.cuda
+def test_groupnorm_film_silu_wrapper_checks_arguments(dev):
+    x = torch.randn(1, 2, 4, 4, 16, device=dev)
+    gamma, beta = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    with pytest.raises(TypeError):
+        N.groupnorm_film_silu(x.double(), gamma, beta)
+    with pytest.raises(ValueError):
+        N.groupnorm_film_silu(x, gamma, beta, groups=3)
+    with pytest.raises(ValueError):
+        N.groupnorm_film_silu(x, gamma, beta, scale=torch.zeros(1, 16, device=dev))
+    with pytest.raises(ValueError):
+        N.groupnorm_film_silu(x.transpose(2, 3), gamma, beta)
+    with pytest.raises(ValueError):
+        N.groupnorm_film_silu(x[0], gamma, beta)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        N.groupnorm_film_silu(x, gamma.requires_grad_(), beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("blend", ["none", "occlusion", "previous"])
+@pytest.mark.parametrize("fn", ["warp_onehot", "warp_gather"])
+def test_warp_blend_kernel(dev, dtype, blend, fn):
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, h, w, c = 2, 24, 20, 67
+    img = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+    grid = 1.4 * torch.rand(b, h, w, 2, generator=g, device=dev) * 2 - 1.4
+    occ = torch.rand(b, h, w, 1, generator=g, device=dev).to(dtype) if blend != "none" else None
+    prev = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype) if blend == "previous" else None
+    wrapper = getattr(W, fn)
+    before = wrapper.launches
+    with torch.no_grad():
+        out = wrapper(img, grid, occ, prev)
+    assert wrapper.launches == before + 1 and out.dtype == torch.float32
+    # both sides work on the same fp32 casts: fp32 tolerance for either input dtype
+    torch.testing.assert_close(out, W.warp_blend_plain(img, grid, occ, prev), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_warp_blend_wrapper_checks_arguments(dev):
+    img = torch.randn(1, 8, 8, 4, device=dev)
+    grid = torch.zeros(1, 8, 8, 2, device=dev)
+    with pytest.raises(ValueError):
+        W.warp_onehot(img, torch.zeros(1, 4, 4, 2, device=dev))
+    with pytest.raises(ValueError):
+        W.warp_gather(img, grid, torch.zeros(1, 8, 8, 4, device=dev))  # occlusion has one channel
+    with pytest.raises(TypeError):
+        W.warp_onehot(img, grid.long())
+    with pytest.raises(ValueError):
+        W.warp_onehot(img.transpose(1, 2), grid)
+    with pytest.raises(ValueError):
+        W.warp_onehot(img, grid, blend="previous")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        W.warp_onehot(img.clone().requires_grad_(), grid)
+
+
+@pytest.mark.cuda
+def test_ablated_temporal_layer_full_is_the_serving_kernel(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    c, f, hw, heads = 64, 40, 64, 8
+    x = torch.randn(1, f, hw, c, generator=g, device=dev).to(torch.bfloat16)
+    gamma = torch.ones(c, device=dev)
+    wqkv = (torch.randn(c, 768, generator=g, device=dev) / 8).to(torch.bfloat16)
+    wout = (torch.randn(256, c, generator=g, device=dev) / 16).to(torch.bfloat16)
+    bias = A.build_bias_flat(torch.randn(heads, f, f, generator=g, device=dev), 1, f)
+    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, torch.bfloat16, dev)
+    args = (x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32)
+    with torch.no_grad():
+        want = A.fused_temporal_layer(*args)
+        before = (A.fused_temporal_layer.launches, A.fused_temporal_layer_ablated.launches)
+        assert torch.equal(A.fused_temporal_layer_ablated("full", *args), want)
+        out = A.fused_temporal_layer_ablated("scores", *args)  # builds, launches; values mean nothing
+    assert out.shape == want.shape
+    assert (A.fused_temporal_layer.launches, A.fused_temporal_layer_ablated.launches) == (
+        before[0], before[1] + 2)
+    with pytest.raises(ValueError):
+        A.fused_temporal_layer_ablated("kvbuild", *args)

@@ -13,6 +13,8 @@ from cvpr23_lfdm_tpu.ops import grid as jgrid
 from cvpr23_lfdm_tpu.ops import quantile as jquantile
 from cvpr23_lfdm_tpu.ops import resize as jresize
 from cvpr23_lfdm_tpu.ops import warp as jwarp
+from cvpr23_lfdm_tpu.ops.warp_pallas import warp_gather as jwarp_gather
+from cvpr23_lfdm_tpu.ops.warp_pallas import warp_onehot as jwarp_onehot
 from cvpr23_lfdm_tpu.ops.warp_pallas import warp_video_tiled
 from cvpr23_lfdm_torch.ops import grid as tgrid
 from cvpr23_lfdm_torch.ops import quantile as tquantile
@@ -105,6 +107,53 @@ def test_warp_video_exact_for_wild_flow():
     np.testing.assert_allclose(out, ref.reshape(out.shape), atol=1e-5)
 
 
+@pytest.mark.parametrize("blend", ["none", "occlusion", "previous"])
+@pytest.mark.parametrize("name", ["warp_onehot", "warp_gather"])
+def test_warp_blend_matches_jax_kernels(name, blend):
+    """`warp_onehot` / `warp_gather` (plain path) == the Pallas kernels of
+    the same names in interpret mode, for the three blends, with sample
+    points up to half a frame outside the image (zero-weight corners) and
+    bf16 inputs for one of them (everything is cast to fp32, fp32 out)."""
+    # 1e-5: fp32 bilinear weights, the 4 corners summed in the same order
+    rng = np.random.RandomState(7)
+    b, h, w, c = 2, 8, 12, 5
+    img = rng.randn(b, h, w, c).astype(np.float32)
+    grid = rng.uniform(-1.5, 1.5, size=(b, h, w, 2)).astype(np.float32)
+    grid[0, 0, 0] = (-1.0, 1.0)  # lands exactly on a pixel-edge
+    occ = rng.uniform(size=(b, h, w, 1)).astype(np.float32) if blend != "none" else None
+    prev = rng.randn(b, h, w, c).astype(np.float32) if blend == "previous" else None
+    jfn, tfn = {"warp_onehot": (jwarp_onehot, twarp.warp_onehot),
+                "warp_gather": (jwarp_gather, twarp.warp_gather)}[name]
+    low = name == "warp_gather"  # bf16 image and partner, cast inside both wrappers
+    jimg = jnp.asarray(img).astype(jnp.bfloat16) if low else jnp.asarray(img)
+    timg = _t(img).to(torch.bfloat16) if low else _t(img)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    t = lambda a: None if a is None else _t(a)
+    ref = np.asarray(jfn(jimg, j(grid), j(occ), j(prev), interpret=True))
+    out = tfn(timg, t(grid), t(occ), t(prev))
+    assert out.dtype == torch.float32 and out.shape == (b, h, w, c)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    # the explicit blend argument overrides the inferred one, as in JAX
+    if blend == "previous":
+        ref = np.asarray(jfn(jimg, j(grid), j(occ), j(prev), blend="occlusion", interpret=True))
+        np.testing.assert_allclose(tfn(timg, t(grid), t(occ), t(prev), blend="occlusion").numpy(),
+                                   ref, atol=1e-5)
+
+
+def test_warp_onehot_has_no_size_cap_and_checks_blend():
+    # 40 x 40 > the TPU kernel's 1024-pixel cap
+    rng = np.random.RandomState(8)
+    img = rng.randn(1, 40, 40, 3).astype(np.float32)
+    grid = rng.uniform(-1.2, 1.2, size=(1, 40, 40, 2)).astype(np.float32)
+    ref = np.asarray(jwarp.grid_sample(jnp.asarray(img), jnp.asarray(grid)))
+    np.testing.assert_allclose(twarp.warp_onehot(_t(img), _t(grid)).numpy(), ref, atol=1e-5)
+    with pytest.raises(ValueError, match="blend"):
+        twarp.warp_onehot(_t(img), _t(grid), blend="occlusion")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        twarp.warp_gather(torch.empty((1, 4, 4, 2), device="meta"), torch.empty((1, 4, 4, 2), device="meta"))
+    assert twarp.warp_onehot.launches == 0 and twarp.warp_gather.launches == 0
+
+
 def test_warp_video_refuses_other_devices():
     # a wrapper runs its plain version only for CPU tensors
     src = torch.empty((1, 4, 4, 2), device="meta")
@@ -138,3 +187,23 @@ def test_dynamic_threshold_matches_jax():
     # exact up to one fp32 division
     x = (np.random.RandomState(6).randn(2, 4, 8, 8, 3) * 2).astype(np.float32)
     np.testing.assert_allclose(tdt(_t(x)).numpy(), np.asarray(jdt(jnp.asarray(x))), atol=1e-7)
+
+
+def test_kernel_counters_table_and_no_count_on_cpu():
+    """One table names every kernel wrapper's launch counter; a CPU call
+    takes the plain version and counts nothing."""
+    from cvpr23_lfdm_torch import ops as tops
+
+    table = tops.kernel_counters()
+    assert len(table) == 10 and all(hasattr(fn, attr) for fn, attr in table.values())
+    tops.reset_counters()
+    rng = np.random.RandomState(8)
+    img = _t(rng.randn(1, 4, 4, 3).astype(np.float32))
+    grid = _t(rng.uniform(-1, 1, (1, 4, 4, 2)).astype(np.float32))
+    twarp.warp_onehot(img, grid)
+    twarp.warp_video(img, grid[:, None])
+    assert set(tops.read_counters().values()) == {0}
+    twarp.warp_gather.launches = 3
+    assert tops.read_counters()["warp_gather"] == 3
+    tops.reset_counters()
+    assert tops.read_counters()["warp_gather"] == 0

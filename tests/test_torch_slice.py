@@ -1,6 +1,8 @@
 """The port's serving slice end to end: `FlowDiffusion.sample_video` on the
 CPU against the JAX `FlowDiffusion.sample_video` (`pallas3` fused layers in
-interpret mode, tiled Pallas decode warp), under the same injected noise.
+interpret mode, tiled Pallas decode warp), under the same injected noise;
+and the same under the `xla` and `pallas` forms of the UNet, each against
+the JAX package under that form.
 
 Config: the small config of `__graft_entry__.py` (64² frames, 16² latent,
 UNet dim 32 mults (1, 2), 4 heads, F=4), rebuilt here, with 3 DDIM steps,
@@ -51,7 +53,7 @@ def _port_cfg(jcfg):
     return conv(jcfg)
 
 
-def _small_cfg(objective):
+def _small_cfg(objective, impl="pallas3_interpret"):
     lfae = jconfig.LFAEConfig(
         frame_shape=64, warp_impl="tiled",
         generator=jconfig.GeneratorConfig(num_bottleneck_blocks=2),
@@ -59,7 +61,7 @@ def _small_cfg(objective):
     diffusion = jconfig.DiffusionConfig(
         img_size=16, num_frames=4, timesteps=50, sampling_timesteps=3,
         dim=32, dim_mults=(1, 2), attn_heads=4, compute_dtype="float32",
-        objective=objective, temporal_attn_impl="pallas3_interpret",
+        objective=objective, temporal_attn_impl=impl,
     )
     return jconfig.ExperimentConfig(dataset="mug", lfae=lfae, diffusion=diffusion)
 
@@ -88,7 +90,17 @@ def _random_variables(shapes, rng):
 
 @pytest.mark.parametrize("objective", ["eps", "x0"])
 def test_sample_video_matches_jax(objective):
-    cfg = _small_cfg(objective)
+    _check_sample_video(_small_cfg(objective), "pallas3")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_sample_video_forms_match_jax(impl):
+    """The slice under the `xla` and `pallas` forms against the JAX package
+    under the same form (the config names it; nothing reroutes it)."""
+    _check_sample_video(_small_cfg("eps", impl), impl.removesuffix("_interpret"))
+
+
+def _check_sample_video(cfg, form):
     jm = JFlowDiffusion(cfg.lfae, cfg.diffusion)
     rng = np.random.RandomState(0)
     b, f, s = 1, cfg.diffusion.num_frames, cfg.diffusion.img_size
@@ -112,6 +124,7 @@ def test_sample_video_matches_jax(objective):
 
     tcfg = _port_cfg(cfg)
     model = FlowDiffusion(tcfg.lfae, tcfg.diffusion, device="cpu")
+    assert model.unet.temporal_attn_impl == form
     model.load_jax_variables(unet_vars, lfae_vars)
     got = model.sample_video(
         torch.from_numpy(ref), torch.from_numpy(cond), 1.0,
@@ -172,6 +185,11 @@ def test_port_imports_no_jax():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "cvpr23_lfdm_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    walked = {os.path.relpath(p, ROOT) for p in files}
+    for new in ("ops/norm.py", "utils/profiling.py", "scripts/_common.py", "scripts/bench_unet.py",
+                "scripts/bench_warp.py", "scripts/bench_attn_ablate.py",
+                "scripts/check_kernel_parity.py"):
+        assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

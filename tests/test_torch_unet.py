@@ -3,7 +3,9 @@ config (dim 32, mults (1, 2), 4 heads x 32, F=4, 16² latent): the serving
 form against the `pallas3` fused layers in interpret mode, and the training
 form (`temporal_attn_impl="pallas2"`) against the `pallas2` head-packed
 kernel pair in interpret mode, output and the gradient of a scalar loss
-with respect to every parameter.
+with respect to every parameter; the `xla`, `pallas` and `fused_norm` forms
+against the JAX Unet3D of the same form in fp32 and bf16; and
+`resolve_attn_impl`, which must give every named form as named.
 
 Weights: seeded random values for every leaf of the JAX variable tree
 (shapes from `init`), bridged by `from_jax_params`. Tolerance 1e-4 max-abs
@@ -66,7 +68,7 @@ def test_unet_matches_jax_pallas3(focus, use_deconv):
         lambda r: jm.init(r, *args[:4], fea=jnp.asarray(fea)), jax.random.PRNGKey(0)), rng)
     ref = jax.jit(lambda v, *a: jm.apply(v, *a[:5], fea=a[5]))(variables, *args, jnp.asarray(fea))
 
-    net = Unet3D(**KW, use_deconv=use_deconv)
+    net = Unet3D(**KW, use_deconv=use_deconv, temporal_attn_impl="pallas3")
     net.load_state_dict(from_jax_params(variables))
     to = lambda a: None if a is None else torch.from_numpy(a)
     with torch.no_grad():
@@ -88,7 +90,7 @@ def test_unet_bf16_policy_matches_jax():
         lambda r: jm.init(r, *args, fea=jnp.asarray(fea)), jax.random.PRNGKey(0)), rng)
     ref = np.asarray(jax.jit(lambda v, *a: jm.apply(v, *a[:3], fea=a[3]))(
         variables, *args, jnp.asarray(fea)))
-    net = Unet3D(**KW, dtype=torch.bfloat16)
+    net = Unet3D(**KW, dtype=torch.bfloat16, temporal_attn_impl="pallas3")
     net.load_state_dict(from_jax_params(variables))
     with torch.no_grad():
         out = net(*(torch.from_numpy(a) for a in (x, t, cond)), fea=torch.from_numpy(fea)).numpy()
@@ -148,7 +150,7 @@ def test_unet_serving_and_training_forms_agree():
     unfused layers compute the same function (1e-4: fp32 sums regrouped)."""
     rng = np.random.RandomState(3)
     b, f, s = 1, 4, 16
-    serving = Unet3D(**KW)
+    serving = Unet3D(**KW, temporal_attn_impl="pallas3")
     training = Unet3D(**KW, temporal_attn_impl="pallas2")
     training.load_state_dict(serving.state_dict())
     args = (torch.from_numpy(rng.standard_normal((b, f, s, s, 3)).astype(np.float32)),
@@ -158,13 +160,114 @@ def test_unet_serving_and_training_forms_agree():
         a, c = serving(*args, fea=fea), training(*args, fea=fea)
     torch.testing.assert_close(a, c, atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="temporal_attn_impl"):
-        Unet3D(**KW, temporal_attn_impl="xla")
+        Unet3D(**KW, temporal_attn_impl="auto")  # the entry points resolve "auto", not the UNet
 
 
 def test_resolve_attn_impl():
-    from cvpr23_lfdm_torch.models.unet3d import resolve_attn_impl
+    """A value that names a form gives that form, whatever the entry point;
+    only `auto` lets the entry point choose; an unknown value raises. (The
+    port used to turn `xla` and `pallas` into `pallas3` / `pallas2`, so a
+    config that named a form got another one.)"""
+    from cvpr23_lfdm_torch.models.unet3d import ATTN_IMPLS, resolve_attn_impl
 
-    assert resolve_attn_impl("xla", training=False) == "pallas3"
-    assert resolve_attn_impl("xla", training=True) == "pallas2"
-    assert resolve_attn_impl("pallas2_interpret", training=False) == "pallas2"
-    assert resolve_attn_impl("pallas3", training=True) == "pallas3"
+    assert ATTN_IMPLS == ("xla", "pallas", "pallas2", "pallas3")
+    for training in (False, True):
+        for impl in ATTN_IMPLS:
+            assert resolve_attn_impl(impl, training=training) == impl
+            assert resolve_attn_impl(impl + "_interpret", training=training) == impl
+    assert resolve_attn_impl("auto", training=False) == "pallas3"
+    assert resolve_attn_impl("auto", training=True) == "pallas2"
+    for bad in ("", "pallas4", "sdpa", "auto_interpret"):
+        with pytest.raises(ValueError, match="temporal_attn_impl"):
+            resolve_attn_impl(bad, training=False)
+
+
+def test_entry_points_build_the_named_form():
+    """`build_unet` (behind `FlowDiffusion`, `apply_bench_ckpt`, `DMTrainer`)
+    honours the config's form: the default `xla` is the einsum form."""
+    import dataclasses
+
+    from cvpr23_lfdm_torch.config import DiffusionConfig, LFAEConfig
+    from cvpr23_lfdm_torch.diffusion.flow_diffusion import build_unet
+
+    base = DiffusionConfig(dim=16, dim_mults=(1,), attn_heads=2)
+    assert base.temporal_attn_impl == "xla"
+    for value, training, want in (("xla", False, "xla"), ("xla", True, "xla"),
+                                  ("pallas", False, "pallas"), ("pallas3_interpret", True, "pallas3"),
+                                  ("auto", False, "pallas3"), ("auto", True, "pallas2")):
+        cfg = dataclasses.replace(base, temporal_attn_impl=value)
+        unet = build_unet(LFAEConfig(), cfg, training)
+        assert unet.temporal_attn_impl == want, (value, training)
+        assert unet.mid_temporal_attn.attn.impl == want and unet.fused_norm is False
+    assert build_unet(LFAEConfig(), base, False, fused_norm=True).mid_block1.block1.fused_norm
+
+
+def _unet_case(seed, b, focus):
+    rng = np.random.RandomState(seed)
+    f, s = 4, 16
+    x = rng.standard_normal((b, f, s, s, 3)).astype(np.float32)
+    fea = rng.standard_normal((b, 1, s, s, 256)).astype(np.float32)
+    t = np.array([999, 317][:b])
+    cond = rng.standard_normal((b, 768)).astype(np.float32)
+    null = np.array([False, True][:b])
+    mask = np.array([True, False][:b]) if focus else None
+    return rng, x, fea, t, cond, null, mask
+
+
+# fp32: ~20 layers of fp32 sums in another order (as the pallas3 test).
+# bf16: the forms round to bf16 at their own points, which the port repeats;
+# one value across a rounding boundary moves by a bf16 ulp (2^-8 relative)
+# and ~20 layers carry it on, so: max 3e-2 and mean 5e-3 of the output scale.
+@pytest.mark.parametrize("jimpl,impl,fused_norm,focus", [
+    ("xla", "xla", None, False), ("xla", "xla", None, True),
+    ("pallas_interpret", "pallas", None, False), ("pallas_interpret", "pallas", None, True),
+    ("xla", "xla", True, False), ("pallas3_interpret", "pallas3", True, True),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_forms_match_jax(jimpl, impl, fused_norm, focus, dtype):
+    """The port's `xla`, `pallas` and `fused_norm=True` forms against the
+    JAX Unet3D of the same form (Pallas kernels in interpret mode)."""
+    b = 2 if dtype == "float32" else 1
+    rng, x, fea, t, cond, null, mask = _unet_case(4, b, focus)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jm = JUnet3D(**KW, temporal_attn_impl=jimpl, fused_norm=fused_norm, dtype=jdt)
+    args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(cond), jnp.asarray(null),
+            None if mask is None else jnp.asarray(mask))
+    variables = _random_variables(jax.eval_shape(
+        lambda r: jm.init(r, *args[:4], fea=jnp.asarray(fea)), jax.random.PRNGKey(0)), rng)
+    ref = np.asarray(jax.jit(lambda v, *a: jm.apply(v, *a[:5], fea=a[5]))(
+        variables, *args, jnp.asarray(fea)))
+
+    net = Unet3D(**KW, temporal_attn_impl=impl, fused_norm=fused_norm,
+                 dtype=getattr(torch, dtype))
+    net.load_state_dict(from_jax_params(variables))
+    to = lambda a: None if a is None else torch.from_numpy(a)
+    with torch.no_grad():
+        out = net(to(x), to(t), to(cond), to(null), focus_present_mask=to(mask), fea=to(fea)).numpy()
+    assert out.shape == ref.shape and out.dtype == np.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, atol=1e-4)
+    else:
+        err, scale = np.abs(out - ref), np.abs(ref).max()
+        assert err.max() <= 3e-2 * scale and err.mean() <= 5e-3 * scale, (err.max(), err.mean(), scale)
+
+
+def test_unet_all_forms_share_one_state_dict_and_agree():
+    """One state dict loads into every form (and `fused_norm`), and in fp32
+    all compute the same function (1e-4: fp32 sums regrouped)."""
+    rng = np.random.RandomState(5)
+    b, f, s = 1, 4, 16
+    first = Unet3D(**KW, temporal_attn_impl="xla")
+    args = (torch.from_numpy(rng.standard_normal((b, f, s, s, 3)).astype(np.float32)),
+            torch.tensor([400]), torch.from_numpy(rng.standard_normal((b, 768)).astype(np.float32)))
+    fea = torch.from_numpy(rng.standard_normal((b, 1, s, s, 256)).astype(np.float32))
+    mask = torch.tensor([True])
+    with torch.no_grad():
+        want = first(*args, focus_present_mask=mask, fea=fea)
+        for impl, fused in (("pallas", None), ("pallas2", None), ("pallas3", None), ("xla", True),
+                            ("pallas3", True)):
+            net = Unet3D(**KW, temporal_attn_impl=impl, fused_norm=fused)
+            result = net.load_state_dict(first.state_dict())
+            assert not result.missing_keys and not result.unexpected_keys
+            got = net(*args, focus_present_mask=mask, fea=fea)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=f"{impl} fused_norm={fused}")
