@@ -16,7 +16,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               library call (`F.grid_sample` for the warp,
               `F.scaled_dot_product_attention` and its autograd backward on
               pre-rotated q, k, v for the head-packed pair; bf16; timed
-              here, used nowhere in the port); the least time the card
+              here, used nowhere in the port; for that pair also the
+              device time alone of the kernels and of SDPA's, from
+              torch.profiler, without the host's work around the
+              launches); the least time the card
               could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s bf16,
               whichever is larger). Likewise the packed attention at the
               four B=1 serving shapes and a focus case (library: SDPA on
@@ -125,8 +128,10 @@ WARP_TOL = {"float32": {"atol": 1e-5, "rtol": 1e-5}, "bfloat16": {"atol": 1e-2, 
 # head-packed attention per training step: HW -> calls per UNet evaluation
 HEADPACKED_SHAPES = {1024: 3, 256: 2, 64: 2, 16: 3}
 TRAIN_BATCH = 5
-# dbias sums ds over all HW pixels in fp32: the same terms in another order
-DBIAS_TOL = {"float32": {"atol": 2e-3, "rtol": 1e-3}, "bfloat16": {"atol": 0.5, "rtol": 5e-2}}
+# dbias sums ds over all HW pixels in fp32: the same terms in another order.
+# In bf16, ds also moves where an exponential rounds the other way, and those
+# moves add over the pixels like a random walk: its atol is per sqrt(HW)
+DBIAS_TOL = {"float32": {"atol": 2e-3, "rtol": 1e-3}, "bfloat16": {"atol": 1e-2, "rtol": 2e-2}}
 TRAIN_PARITY_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_max_abs_rel": 2e-3}
 # fused GroupNorm+FiLM+SiLU per UNet eval at B=1: (H, C) -> (Blocks with FiLM, without)
 NORM_SHAPES = {(32, 64): (4, 8), (16, 128): (2, 2), (16, 64): (2, 2), (8, 256): (2, 2),
@@ -152,6 +157,22 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     from cvpr23_lfdm_torch.utils.profiling import time_fn
 
     return time_fn(fn, iters=reps, warmup=warmup)["median_ms"]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time per call of `fn`: the kernels and copies it puts on the
+    card, summed by torch.profiler over `reps` calls after one warm-up, over
+    `reps`. The host's work around the launches is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r["device_ms"] for r in profile_rows(prof) if r["on_device"]) / reps
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -502,6 +523,7 @@ def check_headpacked(failures: list) -> dict:
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
     names = ("headpacked_attention_fwd", "headpacked_attention_bwd")
     totals = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                  "device_ms": 0.0, "library_device_ms": 0.0,
                   "max_abs_err": 0.0, "bytes": 0.0, "flops": 0.0} for n in names}
     hd = HEADS * DH
     b, f = TRAIN_BATCH, F_FRAMES
@@ -525,7 +547,8 @@ def check_headpacked(failures: list) -> dict:
                 b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
                 line.update(times[name], bound_ms=b_ms, bound_by=b_by, calls_per_step=per_step)
                 t = totals[name]
-                for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms")):
+                for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("library_ms", "library_ms"),
+                                 ("device_ms", "kernel_device_ms"), ("library_device_ms", "library_device_ms")):
                     t[key] += per_step * times[name][src]
                 t["bound_ms"] += per_step * b_ms
                 t["bytes"] += per_step * nbytes
@@ -548,8 +571,11 @@ def check_headpacked(failures: list) -> dict:
             pout, pdq, pdb = run(A.headpacked_temporal_attention_plain, qkv, bias, cos_t, sin_t, do)
             res = {names[0]: compare(out, pout, TOL[dname]),
                    names[1]: compare(dq, pdq, TOL[dname])}
-            dbias = compare(db, pdb, DBIAS_TOL[dname])
-            res[names[1]].update(dbias_max_abs_err=dbias["max_abs_err"], dbias_tol=DBIAS_TOL[dname],
+            dtol = dict(DBIAS_TOL[dname])
+            if dtype == torch.bfloat16:
+                dtol["atol"] *= hw ** 0.5
+            dbias = compare(db, pdb, dtol)
+            res[names[1]].update(dbias_max_abs_err=dbias["max_abs_err"], dbias_tol=dtol,
                                  ok=res[names[1]]["ok"] and dbias["ok"],
                                  finite=res[names[1]]["finite"] and dbias["finite"])
             del pout, pdq, pdb, out, dq, db
@@ -558,16 +584,20 @@ def check_headpacked(failures: list) -> dict:
                 units = b * hw * HEADS
                 bounds = {names[0]: (b * f * hw * 4 * hd * esz + bias.numel() * 4, units * 4 * f * f * DH),
                           names[1]: (b * f * hw * 7 * hd * esz + 2 * bias.numel() * 4, units * 10 * f * f * DH)}
-                # kernel and plain: forward alone; backward alone on a kept graph
-                def timer(fn, reps):
+                # kernel and plain: forward alone; backward alone on a kept graph;
+                # with `device`, also the device time alone of each (profiler)
+                def timer(fn, reps, device=False):
                     q, bb = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
+                    fwd_fn = lambda: fn(q, bb, cos_t, sin_t, HEADS, DH)
                     with torch.no_grad():
-                        fwd = median_ms(lambda: fn(q, bb, cos_t, sin_t, HEADS, DH), reps=reps)
+                        fwd = median_ms(fwd_fn, reps=reps)
+                        fwd_dev = device_ms(fwd_fn, reps) if device else None
                     o = fn(q, bb, cos_t, sin_t, HEADS, DH)
-                    bwd = median_ms(lambda: torch.autograd.grad(o, (q, bb), do, retain_graph=True), reps=reps)
-                    return fwd, bwd
-                k_fwd, k_bwd = timer(A.headpacked_temporal_attention, 10)
-                p_fwd, p_bwd = timer(A.headpacked_temporal_attention_plain, 3)
+                    bwd_fn = lambda: torch.autograd.grad(o, (q, bb), do, retain_graph=True)
+                    bwd = median_ms(bwd_fn, reps=reps)
+                    return fwd, bwd, fwd_dev, device_ms(bwd_fn, reps) if device else None
+                k_fwd, k_bwd, kd_fwd, kd_bwd = timer(A.headpacked_temporal_attention, 10, device=True)
+                p_fwd, p_bwd, _, _ = timer(A.headpacked_temporal_attention_plain, 3)
                 # library yardstick: SDPA on pre-rotated q, k, v [B*HW, heads, F, d],
                 # the bias as an additive mask (the q-scale is in q already)
                 with torch.no_grad():
@@ -582,19 +612,21 @@ def check_headpacked(failures: list) -> dict:
                     do4 = do.reshape(b, f, hw, HEADS, DH).permute(0, 2, 3, 1, 4).reshape(
                         b * hw, HEADS, f, DH).contiguous()
                     del x, blk
-                    l_fwd = median_ms(lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=m4, scale=1.0), reps=10)
+                    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=1.0)
+                    l_fwd, ld_fwd = median_ms(sdpa, reps=10), device_ms(sdpa)
                 qg, kg, vg = (t.requires_grad_() for t in (q4, k4, v4))
                 o4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4, scale=1.0)
-                l_bwd = median_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True),
-                                  reps=10)
+                sdpa_bwd = lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True)
+                l_bwd, ld_bwd = median_ms(sdpa_bwd, reps=10), device_ms(sdpa_bwd)
                 lib_err = float((o4.detach().permute(0, 2, 1, 3).reshape(b, hw, f, hd).transpose(1, 2).float()
                                  - A.headpacked_temporal_attention(qkv, bias, cos_t, sin_t, HEADS, DH).float()
                                  ).abs().max())
                 del o4, qg, kg, vg, q4, k4, v4, m4, do4
                 times = {names[0]: {"kernel_ms": k_fwd, "plain_ms": p_fwd, "library_ms": l_fwd,
+                                    "kernel_device_ms": kd_fwd, "library_device_ms": ld_fwd,
                                     "library_max_abs_diff": lib_err},
-                         names[1]: {"kernel_ms": k_bwd, "plain_ms": p_bwd, "library_ms": l_bwd}}
+                         names[1]: {"kernel_ms": k_bwd, "plain_ms": p_bwd, "library_ms": l_bwd,
+                                    "kernel_device_ms": kd_bwd, "library_device_ms": ld_bwd}}
             emit_case(hw, dname, ["focus"] if focus else [], res, times, bounds, per_step)
             torch.cuda.empty_cache()
     return totals
@@ -1182,6 +1214,8 @@ def main() -> int:
             "launches": counted[name], "per": per, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": b_by,
             "library_ms": t["library_ms"],
+            **({"device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"]}
+               if "device_ms" in t else {}),
         })
     emit({"kernels": kernels,
           "per": "ms, plain_ms, bound_ms, library_ms: sums over the calls named in each kernel's `per` "

@@ -56,24 +56,37 @@ head, not the TPU's masked 256×256 product). The second has one block per
 `q·context`, the biased out-projection and the residual. It is bound by
 operations (the projections), like the temporal layer.
 
-`headpacked_temporal_attention` on the H100. The pair is bound by bytes:
-the forward reads qkv and writes the output, the backward reads qkv and
-`do` and writes `dqkv`; the products are ~0.2 (forward) and ~0.6 MFLOP
-(backward, recomputing the probabilities) per (pixel, head). A block of
-four warps owns one (pixel, head): its warps split the frames and load that
-head's q, k, v `[F, 32]` with lane = channel, rotate them (pair partner by
-shuffle, q-scale in the table), round to the compute dtype and keep them
-as fp32 rows in shared memory; then they split the query rows, lanes
-holding the keys for the scores and the softmax (a max per head) and the
-channels for the `p.v` sum. The backward keeps `do` there too, writes each
-`dq` row as it is finished, rounds `ds` and the probabilities into two
-`[F, F]` tiles, and after a block barrier splits the key columns for `dk`
-and `dv`; all three go out through the rotary adjoint, so `dqkv` is the
-gradient of the raw qkv. `dbias` sums over all pixels: a backward block
-walks a chunk of pixels of one (batch, head) in order, sums `ds` in its own
-`[F, F]` shared-memory tile and writes it out; a second launch adds the
-chunks in index order. No atomics, so a step's gradients
-are the same bit for bit from run to run.
+`headpacked_temporal_attention` on the H100 (`csrc/headpacked_attention.cu`,
+replacing `_headpacked_kernel` and `_headpacked_bwd_kernel` of
+`attention_pallas.py`). The pair is bound by bytes: the forward reads qkv
+and writes the output, the backward reads qkv and `do` and writes `dqkv`
+(0.42 / 0.73 GB at B=5, HW=1024 in bf16); the products, 4·F²·d and
+10·F²·d FLOP per (pixel, head), are far below the tensor cores' rate per
+byte. In bf16 (the training step) the products run on tensor cores:
+`mma.sync` m16n8k16, bf16 operands, fp32 sums. A block owns a chunk of
+pixels of one (batch, head) and keeps that head's rotary tables and
+`[F, F]` bias in shared memory; each of its warps walks its pixels one at
+a time, copies the pixel's q, k, v (and `do`) rows with 16-byte `cp.async`
+into swizzled `[16·⌈F/16⌉, 32]` tiles (pad rows zero), rotates them in
+place (the rotary partner is the neighbouring channel, so in the same
+16-byte vector), and runs query strips of 16 rows: scores and `dP` by
+`ldmatrix` fragments, the softmax in the C fragments (a max per head,
+pad keys at −inf), the exponentials packed to bf16 as the A fragments of
+`p·v`, `ds·k`, and, transposed in registers by `movmatrix`, of
+`dk += dsᵀq` and `dv += pᵀdo`, whose sums stay in registers over the
+strips. Outputs leave through a staging tile as 16-byte stores of whole
+rows; the rotary adjoint is applied in registers, so `dqkv` is the
+gradient of the raw qkv. Every operand is rounded to bf16 where the
+plain version rounds (rotated qkv, `exp`, `prob`, `ds`; `dk`, `dv` before
+the adjoint, `dq` not), so the tensor cores change only the order of the
+fp32 sums. fp32 keeps the first design on CUDA cores (a block of four
+warps per (pixel, head), fp32 rows in shared memory, FMA loops): `mma` on
+fp32 would be TF32, which the fp32 gates would not pass. `dbias` sums over
+all pixels: each warp (bf16) or block (fp32) adds `ds` into its own
+`[F, F]` shared-memory tile, a block writes one partial per chunk (bf16:
+its warps' tiles added in warp order), and a second launch adds the
+chunks in index order. No atomics, so a step's gradients are the same bit
+for bit from run to run.
 
 `packed_temporal_attention` on the H100. Bound by bytes like the
 head-packed forward, and built like it (a block of four warps per (pixel,
@@ -90,6 +103,7 @@ together.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -466,6 +480,31 @@ def _check_headpacked_args(qkv, bias_flat, cos_t, sin_t, heads, dim_head):
         raise TypeError(f"{name}: rotary table dtype != qkv dtype {qkv.dtype}")
     if bias_flat.dtype != torch.float32:
         raise TypeError(f"{name}: bias_flat {bias_flat.dtype} where float32 is required")
+    if qkv.dtype == torch.bfloat16:
+        _check_aligned(name, qkv, cos_t, sin_t)
+
+
+def _check_aligned(name, *tensors):
+    """The bf16 kernels move 16-byte vectors: their tensors must start on
+    a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 arguments must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _headpacked_chunks(qkv, heads):
+    """Pixel chunks per (batch, head): a bf16 launch runs one block per
+    chunk and aims at four blocks for each SM of the card; an fp32 backward
+    block walks up to 16 pixels (the fp32 forward takes no chunks)."""
+    b, _, hw, _ = qkv.shape
+    if qkv.dtype == torch.bfloat16:
+        blocks = 4 * _sm_count(qkv.device.index)
+        return max(1, min(hw, -(-blocks // (b * heads))))
+    return -(-hw // max(1, min(16, hw // 64)))
 
 
 def _launch_headpacked_fwd(qkv, bias_flat, cos_t, sin_t, heads):
@@ -475,9 +514,9 @@ def _launch_headpacked_fwd(qkv, bias_flat, cos_t, sin_t, heads):
     name = "launch_headpacked_fwd_" + _suffix(qkv.dtype)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     code = fn(*(_build.ptr(t) for t in (qkv, bias_flat, cos_t, sin_t, out)),
-              b, f, hw, heads, _build.stream(qkv.device))
+              b, f, hw, heads, _headpacked_chunks(qkv, heads), _build.stream(qkv.device))
     _build.check(lib, name, code)
     headpacked_temporal_attention.launches += 1
     return out
@@ -486,12 +525,13 @@ def _launch_headpacked_fwd(qkv, bias_flat, cos_t, sin_t, heads):
 def _launch_headpacked_bwd(qkv, bias_flat, cos_t, sin_t, do, heads, want_dbias: bool):
     b, f, hw, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
-    # pixels one block walks in order; its [F, F] partial of dbias is summed
+    if qkv.dtype == torch.bfloat16:
+        _check_aligned("headpacked_temporal_attention", do)
+    # a block's [F, F] partial of dbias over its chunk of pixels is summed
     # with the other chunks' by a second launch, in index order
-    px = max(1, min(16, hw // 64))
+    chunks = _headpacked_chunks(qkv, heads)
     dbias = partial = None
     if want_dbias:
-        chunks = -(-hw // px)
         partial = torch.empty((b, heads, chunks, f, f), dtype=torch.float32, device=qkv.device)
         dbias = torch.empty_like(bias_flat)
     lib = _build.load("headpacked_attention")
@@ -503,7 +543,7 @@ def _launch_headpacked_bwd(qkv, bias_flat, cos_t, sin_t, do, heads, want_dbias: 
     code = fn(*(_build.ptr(t) for t in (qkv, bias_flat, cos_t, sin_t, do, dqkv)),
               null if partial is None else _build.ptr(partial),
               null if dbias is None else _build.ptr(dbias),
-              b, f, hw, heads, px, _build.stream(qkv.device))
+              b, f, hw, heads, chunks, _build.stream(qkv.device))
     _build.check(lib, name, code)
     headpacked_temporal_attention.backward_launches += 1
     return dqkv, dbias

@@ -6,7 +6,8 @@ backward) and the XLA einsum attention of `TemporalAttention(impl="xla")`.
 
 Inputs come from a numpy seed and go through both. Sizes: B=2, F=5 or 7,
 HW=6, 2 heads x 32 (the port's kernels need d=32; the plain version takes
-any d and the XLA comparison also runs d=8).
+any d and the XLA comparison also runs d=8); against the interpret kernel
+also the training step's F=40 and F=33, at HW=2.
 
 Tolerances. fp32 forward 2e-5 and gradients 2e-4 max-abs, the bounds of the
 JAX package's own tests of its kernel against XLA
@@ -86,9 +87,11 @@ def _torch_run(qkv, pos_bias, mask, do, heads, dh, dtype=torch.float32):
     return out.detach().float().numpy(), q.grad.float().numpy(), pb.grad.numpy()
 
 
-@pytest.mark.parametrize("f,focus", [(5, False), (7, False), (5, True)])
+@pytest.mark.parametrize("f,focus", [(5, False), (7, False), (5, True), (40, False), (33, False)])
 def test_forward_and_grads_match_jax_interpret_kernel(f, focus):
-    qkv, pos_bias, do = _inputs(0, f=f)
+    """F = 40 is the training step's frame count (33: odd, one past a
+    multiple of 16, as the card kernels pad); those run at HW = 2."""
+    qkv, pos_bias, do = _inputs(0, f=f, hw=2 if f > 32 else 6)
     mask = np.array([True, False]) if focus else None
 
     def jloss(q, pb):
@@ -142,8 +145,9 @@ def test_extreme_head_bias_gap():
     np.testing.assert_allclose(dpb, np.asarray(jdpb), atol=2e-4)
 
 
-def test_bf16_forward_and_grads_within_ulps_of_jax_kernel():
-    qkv, pos_bias, do = _inputs(3)
+@pytest.mark.parametrize("f", [5, 40, 33])
+def test_bf16_forward_and_grads_within_ulps_of_jax_kernel(f):
+    qkv, pos_bias, do = _inputs(3, f=f, hw=2 if f > 32 else 6)
     b, f = qkv.shape[:2]
     to_bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
 

@@ -88,12 +88,13 @@ def test_kernel_wrappers_check_arguments(dev):
         W.warp_video(src, torch.zeros(1, 2, 4, 4, 2, device=dev))
 
 
-def _headpacked_inputs(dev, dtype, b, f, hw, heads, focus, seed=3):
+def _headpacked_inputs(dev, dtype, b, f, hw, heads, focus, seed=3, gap=0.0):
     g = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn(b, f, hw, 3 * heads * 32, generator=g, device=dev).to(dtype)
     pos_bias = torch.randn(heads, f, f, generator=g, device=dev)
     mask = torch.tensor([True] + [False] * (b - 1), device=dev) if focus else None
     bias = A.build_bias_flat(pos_bias, b, f, mask)
+    bias[..., :f] += gap  # head 0's logits `gap` above the others'
     cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, dtype, dev)
     do = torch.randn(b, f, hw, heads * 32, generator=g, device=dev).to(dtype)
     return qkv, bias, cos_t, sin_t, do
@@ -101,13 +102,20 @@ def _headpacked_inputs(dev, dtype, b, f, hw, heads, focus, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,f,hw,focus", [(2, 40, 64, False), (3, 40, 16, True), (1, 64, 8, False),
-                                          (2, 7, 130, True)])
-def test_headpacked_attention_kernels(dev, dtype, b, f, hw, focus):
+@pytest.mark.parametrize("b,f,hw,heads,focus,gap", [
+    (2, 40, 64, 8, False, 0.0), (3, 40, 16, 8, True, 0.0), (1, 64, 8, 8, False, 0.0),
+    (2, 7, 130, 8, True, 0.0),
+    # frames padded to a multiple of 16; HW not a multiple of the pixels a
+    # backward warp walks; units of a block spanning pixels (heads 1 and 3)
+    (2, 1, 7, 8, False, 0.0), (2, 16, 7, 3, False, 0.0), (1, 17, 130, 1, True, 0.0),
+    (2, 33, 7, 3, True, 0.0), (1, 48, 130, 8, False, 0.0), (2, 64, 7, 1, False, 0.0),
+    # one head's bias ~300 above the others' (a max per head)
+    (2, 40, 130, 8, False, 300.0), (1, 33, 16, 3, False, 300.0),
+])
+def test_headpacked_attention_kernels(dev, dtype, b, f, hw, heads, focus, gap):
     """Forward and backward kernels against the plain forward and backward
     (dbias: an fp32 sum over HW pixels, tolerance scaled by sqrt(HW))."""
-    heads = 8
-    qkv, bias, cos_t, sin_t, do = _headpacked_inputs(dev, dtype, b, f, hw, heads, focus)
+    qkv, bias, cos_t, sin_t, do = _headpacked_inputs(dev, dtype, b, f, hw, heads, focus, gap=gap)
     outs = []
     for fn in (A.headpacked_temporal_attention, A.headpacked_temporal_attention_plain):
         q = qkv.clone().requires_grad_()
@@ -154,6 +162,10 @@ def test_headpacked_wrapper_checks_arguments(dev):
         A.headpacked_temporal_attention(qkv.transpose(1, 2), bias, cos_t, sin_t, 2, 32)
     with pytest.raises(TypeError):
         A.headpacked_temporal_attention(qkv.half(), bias, cos_t, sin_t, 2, 32)
+    # the bf16 kernels move 16-byte vectors
+    bf = torch.empty(qkv.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(qkv.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        A.headpacked_temporal_attention(bf, bias, cos_t.bfloat16(), sin_t.bfloat16(), 2, 32)
 
 
 @pytest.mark.cuda
