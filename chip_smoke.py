@@ -23,13 +23,15 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s bf16,
               whichever is larger). Likewise the packed attention at the
               four B=1 serving shapes and a focus case (library: SDPA on
-              pre-permuted q, k, v), the fused GroupNorm+FiLM+SiLU at every
+              pre-permuted q, k, v; device times alone of both; run twice
+              for bit-identity), the fused GroupNorm+FiLM+SiLU at every
               `Block` shape of a serving eval, with and without FiLM and
               run twice for bit-identity (no single library call), and the
               fused warp+blend under both of its names for the three blends
               at `[8, 32, 32, 256]` and `[8, 128, 128, 67]` (library:
-              `F.grid_sample` for blend none); these warp+blend calls are
-              lines of their own and enter no total.
+              `F.grid_sample` for blend none; device times alone of both);
+              these warp+blend calls are lines of their own and enter no
+              total.
 3. serving  — the MUG serving path at full width on the bench checkpoint
               (128² frames, 40 frames, DDIM-10, B=1, cond_scale 1, bf16
               compute): output shapes, finite values, `out_vid` in [0, 1],
@@ -66,8 +68,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 8. serving forms — the full MUG video (bf16, B=1) with
               `temporal_attn_impl="pallas"` (100 packed-attention launches,
-              no fused-layer launch, 3 warps) and with `"xla"` (no
-              attention kernel at all): gates as in phase 3, frames/s.
+              no fused-layer launch, 3 warps; one more video under
+              torch.profiler: device busy ms and the packed kernel's share)
+              and with `"xla"` (no attention kernel at all): gates as in
+              phase 3, frames/s.
 9. forms parity — `scripts/check_kernel_parity.py` in fp32 (TF32 off): the
               video under `xla`, `pallas` and `pallas3` on the same weights
               and noise, max-abs per output against `xla`, tolerance 5e-4.
@@ -80,15 +84,20 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               layer.
 12. bench warp — `scripts/bench_warp.py`: the decode-warp variants at
               `[8, 40, 128, 128, 67]` and `warp_video` / `F.grid_sample` /
-              `warp_onehot` at every decode scale. Then every folded
-              warp+blend call of that run (`[320, s, s, C]`, blend none) on
-              the same inputs, elementwise against the plain version and
-              timed beside it and `F.grid_sample`: the totals of
-              `warp_onehot` and `warp_gather` in the `kernels` line.
+              `warp_onehot` at every decode scale; its launch counts. Every
+              folded warp+blend call of that run (`[320, s, s, C]`, blend
+              none) is made again from the script's seeded inputs in phase
+              2 (after the other kernel checks), elementwise against the
+              plain version and timed beside it and `F.grid_sample` (with
+              the device times alone of the kernel and of `F.grid_sample`):
+              the totals of `warp_onehot` and `warp_gather` in the
+              `kernels` line.
 
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
-`per`), the `nvidia-smi` name/power-limit line, and last
+`per`; for rows 4-6, 8 and 9 also `device_ms` / `library_device_ms`, the
+same calls' device time alone from torch.profiler), the `nvidia-smi`
+name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without that
 line.
 """
@@ -159,20 +168,28 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return time_fn(fn, iters=reps, warmup=warmup)["median_ms"]
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, launches: int | None = None) -> float | None:
     """Device time per call of `fn`: the kernels and copies it puts on the
     card, summed by torch.profiler over `reps` calls after one warm-up, over
-    `reps`. The host's work around the launches is not in it."""
+    `reps`. The host's work around the launches is not in it. With
+    `launches` (device activities per call), a profile that recorded another
+    number of them is taken once more, then given up (None): in the last
+    phase of a full run of this script the profiler has recorded half of a
+    run's kernels, or none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(2):
+        fn()
         torch.cuda.synchronize()
-    return sum(r["device_ms"] for r in profile_rows(prof) if r["on_device"]) / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in profile_rows(prof) if r["on_device"]]
+        if launches is None or sum(r["count"] for r in rows) == launches * reps:
+            return sum(r["device_ms"] for r in rows) / reps
+    return None
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -228,6 +245,10 @@ def _record(totals, failures, name, shape, dname, res, weight, times=None, nbyte
         t["flops"] += weight * flops
         if weight and times.get("library_ms") is not None:
             t["library_ms"] = (t["library_ms"] or 0.0) + weight * times["library_ms"]
+        if weight and "kernel_device_ms" in times:  # device time alone (None: not measured)
+            for key, src in (("device_ms", "kernel_device_ms"), ("library_device_ms", "library_device_ms")):
+                v, so_far = times.get(src), t.get(key, 0.0)
+                t[key] = None if v is None or so_far is None else so_far + weight * v
         t["max_abs_err"] = max(t["max_abs_err"], res["max_abs_err"])
     emit(line)
 
@@ -393,7 +414,10 @@ def injected_noise(cfg, seed: int):
 
 
 def run_serving(failures: list, timed_runs: int = 3, impl: str = "pallas3",
-                phase: str = "serving") -> tuple[dict, float]:
+                phase: str = "serving", profiled: bool = False) -> tuple[dict, float]:
+    """The video at B=1 under one UNet form: gates, launch counts, frames/s;
+    with `profiled`, one more video under torch.profiler for its device busy
+    time and the packed-attention kernel's share of it."""
     import torch
 
     cfg, model, cond, ref, meta = serving_model("bfloat16", impl=impl)
@@ -430,9 +454,20 @@ def run_serving(failures: list, timed_runs: int = 3, impl: str = "pallas3",
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     med = float(np.median(lat))
+    busy = {}
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sample()
+            torch.cuda.synchronize()
+        device = [r for r in profile_rows(prof) if r["on_device"]]
+        busy = {"device_busy_ms": sum(r["device_ms"] for r in device),
+                "packed_attention_device_ms": sum(r["device_ms"] for r in device
+                                                  if "packed_attention" in r["name"])}
     emit({"phase": phase, "temporal_attn_impl": impl, "objective": meta["objective"], "dtype": "bfloat16",
           "shapes": shapes, "launches": launches, "launches_expected": want, **checks,
-          "latency_s": lat, "median_latency_s": med, "frames_per_s": F_FRAMES / med,
+          "latency_s": lat, "median_latency_s": med, "frames_per_s": F_FRAMES / med, **busy,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30, "gpu": gpu_line()})
     for k, v in checks.items():
         if not v:
@@ -856,7 +891,7 @@ def check_new_kernels(failures: list) -> dict:
     the type its kernel works in): the packed attention over the calls of
     one serving video, the norm over the calls of one UNet eval. The
     warp+blend calls here (three blends, two shapes) are lines of their own;
-    that kernel's totals are the folded calls of `run_bench_warp`."""
+    that kernel's totals are the folded calls of `check_folded_warps`."""
     import torch
     import torch.nn.functional as F
 
@@ -886,19 +921,24 @@ def check_new_kernels(failures: list) -> dict:
                 mask = torch.tensor([True, False], device=dev) if focus else None
                 bias = A.build_bias(pos_bias, b, pack, f, mask)
                 args = (qkv, bias, HEADS, DH, pack)
-                out = A.packed_temporal_attention(*args)
+                call = lambda: A.packed_temporal_attention(*args)
+                out = call()
                 res = compare(out, A.packed_temporal_attention_plain(*args), TOL[dname])
-                times, extra = None, {}
+                same = bool(torch.equal(out, call()))  # no atomics: the same bits when run again
+                res["ok"] = res["ok"] and same
+                times, extra = None, {"bit_identical_twice": same}
                 if timed and not focus:
                     q4, k4, v4 = (qkv[..., i * hd:(i + 1) * hd].reshape(b * hw, f, HEADS, DH)
                                   .transpose(1, 2).contiguous() for i in range(3))
                     m4 = pos_bias[None].to(dtype).contiguous()  # [1, heads, F, F], broadcast
                     sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=1.0)
-                    times = {"kernel_ms": median_ms(lambda: A.packed_temporal_attention(*args)),
+                    times = {"kernel_ms": median_ms(call),
                              "plain_ms": median_ms(lambda: A.packed_temporal_attention_plain(*args), reps=5),
-                             "library_ms": median_ms(sdpa)}
+                             "library_ms": median_ms(sdpa),
+                             "kernel_device_ms": device_ms(call, launches=1),
+                             "library_device_ms": device_ms(sdpa)}
                     lib = sdpa().transpose(1, 2).reshape(b, hw, f, hd)
-                    extra = {"library_max_abs_diff": float((lib.float() - out.float()).abs().max())}
+                    extra["library_max_abs_diff"] = float((lib.float() - out.float()).abs().max())
                     del q4, k4, v4, lib
                 # of the bias the function needs the [heads, F, F] table and one focus flag per
                 # batch entry, not the packed [B, heads, P*F, P*F] tensor that carries them
@@ -946,11 +986,14 @@ def check_new_kernels(failures: list) -> dict:
                         if not timed:  # the kernel works in fp32: time it there, without the casts
                             times = {"kernel_ms": median_ms(lambda: fn(*args)),
                                      "plain_ms": median_ms(lambda: W.warp_blend_plain(*args), reps=5),
-                                     "library_ms": None}
+                                     "library_ms": None,
+                                     "kernel_device_ms": device_ms(lambda: fn(*args), launches=1),
+                                     "library_device_ms": None}
                             if blend == "none":
                                 nchw = img.permute(0, 3, 1, 2)
-                                times["library_ms"] = median_ms(lambda: F.grid_sample(
-                                    nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+                                gs = lambda: F.grid_sample(
+                                    nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+                                times.update(library_ms=median_ms(gs), library_device_ms=device_ms(gs, launches=1))
                         n_in = img.numel() + grid.numel() + sum(t.numel() for t in extra_args)
                         _record(totals, failures, name, [b, h, w, c], dname, res, 0, times,
                                 (n_in + img.numel()) * 4, (8 + 3 * len(extra_args)) * img.numel(),
@@ -1064,19 +1107,55 @@ def run_ablate(failures: list) -> tuple[dict, dict]:
     return launches, entry
 
 
-def run_bench_warp(failures: list, totals: dict) -> dict:
-    """The port's `bench_warp`: the variants at the largest decode warp and
-    the per-scale table; returns that run's launch counts. Then each folded
-    call that run made (`warp_onehot` at the three decode scales,
-    `warp_gather` at the largest; blend none, the shared source repeated
-    over the frames) once more on the same bf16 inputs, elementwise against
-    the plain version, and timed on their fp32 casts beside the plain
-    version and `F.grid_sample` on the same repeated source: these calls
-    are the two kernels' totals."""
+def check_folded_warps(failures: list, totals: dict) -> None:
+    """The folded warp+blend calls of the `bench_warp` run (phase 12:
+    `warp_onehot` at the three decode scales, `warp_gather` at the largest;
+    blend none, the shared source repeated over the frames), made from the
+    script's seeded inputs: elementwise against the plain version on the bf16
+    inputs, timed on their fp32 casts beside the plain version and
+    `F.grid_sample` on the same repeated source, with the device times alone
+    of the kernel and `F.grid_sample`. These calls are the two kernels'
+    totals. (Run early: in the last phase of a full run the profiler has
+    lost kernels.)"""
     import torch
     import torch.nn.functional as F
 
     from cvpr23_lfdm_torch.ops import warp as W
+    from cvpr23_lfdm_torch.scripts import bench_warp
+
+    dev = torch.device("cuda")
+    b, f = BLEND_SHAPES[0][0], F_FRAMES
+    big = bench_warp.DECODE_SCALES[-1]
+    with torch.no_grad():
+        for s, c in bench_warp.DECODE_SCALES:
+            image, grid5 = bench_warp.make_case(b, f, s, c, torch.bfloat16, dev)
+            img, grid = image.repeat_interleave(f, dim=0), grid5.reshape(b * f, s, s, 2)
+            ref = W.warp_blend_plain(img, grid)
+            img32 = img.float()
+            nchw = img32.permute(0, 3, 1, 2)
+            gs = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+            shared = {"plain_ms": median_ms(lambda: W.warp_blend_plain(img32, grid), reps=3, warmup=1),
+                      "library_ms": median_ms(gs, reps=5),
+                      "library_device_ms": device_ms(gs, reps=5, launches=1)}
+            names = [("warp_onehot", W.warp_onehot)] + ([("warp_gather", W.warp_gather)] if (s, c) == big else [])
+            for name, fn in names:
+                res = compare(fn(img, grid), ref, WARP_TOL["float32"])
+                times = {"kernel_ms": median_ms(lambda: fn(img32, grid), reps=10), **shared,
+                         "kernel_device_ms": device_ms(lambda: fn(img32, grid), launches=1)}
+                _record(totals, failures, name, [b * f, s, s, c], "float32", res, 1, times,
+                        (2 * img.numel() + grid.numel()) * 4, 8 * img.numel(), FP32_FLOPS, blend="none",
+                        what="folded call of the bench_warp run: compared on its bf16 inputs, "
+                             "timed on their fp32 casts")
+            del image, grid5, img, grid, ref, img32, nchw
+            torch.cuda.empty_cache()
+
+
+def run_bench_warp(failures: list) -> dict:
+    """The port's `bench_warp`: the variants at the largest decode warp and
+    the per-scale table; returns that run's launch counts (its folded
+    warp+blend calls are timed in `check_folded_warps`)."""
+    import torch
+
     from cvpr23_lfdm_torch.scripts import bench_warp
 
     dev = torch.device("cuda")
@@ -1095,34 +1174,13 @@ def run_bench_warp(failures: list, totals: dict) -> dict:
     launches = counters()
     every = rows + [r for v in per_scale.values() for r in v]
     # `val_drift` (a difference of whole-tensor means) is information; the gate on the
-    # values is the elementwise comparison below
+    # values is the elementwise comparison in `check_folded_warps`
     ok = bool(all(np.isfinite(r["ms"]) for r in every)
               and launches["warp_onehot"] > 0 and launches["warp_gather"] > 0)
     emit({"phase": "bench warp", "shape": [b, f, big[0], big[0], big[1]], "dtype": "bfloat16",
           "variants": rows, "per_scale": per_scale, "launches": launches, "ok": ok, "gpu": gpu_line()})
     if not ok:
         failures.append("bench warp")
-
-    with torch.no_grad():
-        for s, c in bench_warp.DECODE_SCALES:
-            image, grid5 = bench_warp.make_case(b, f, s, c, torch.bfloat16, dev)
-            img, grid = image.repeat_interleave(f, dim=0), grid5.reshape(b * f, s, s, 2)
-            ref = W.warp_blend_plain(img, grid)
-            img32 = img.float()
-            nchw = img32.permute(0, 3, 1, 2)
-            shared = {"plain_ms": median_ms(lambda: W.warp_blend_plain(img32, grid), reps=3, warmup=1),
-                      "library_ms": median_ms(lambda: F.grid_sample(
-                          nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False), reps=5)}
-            names = [("warp_onehot", W.warp_onehot)] + ([("warp_gather", W.warp_gather)] if (s, c) == big else [])
-            for name, fn in names:
-                res = compare(fn(img, grid), ref, WARP_TOL["float32"])
-                times = {"kernel_ms": median_ms(lambda: fn(img32, grid), reps=10), **shared}
-                _record(totals, failures, name, [b * f, s, s, c], "float32", res, 1, times,
-                        (2 * img.numel() + grid.numel()) * 4, 8 * img.numel(), FP32_FLOPS, blend="none",
-                        what="folded call of the bench_warp run: compared on its bf16 inputs, "
-                             "timed on their fp32 casts")
-            del image, grid5, img, grid, ref, img32, nchw
-            torch.cuda.empty_cache()
     return launches
 
 
@@ -1163,17 +1221,18 @@ def main() -> int:
     totals = check_kernels(failures)
     totals.update(check_headpacked(failures))
     totals.update(check_new_kernels(failures))
+    check_folded_warps(failures, totals)
     launches, latency_s = run_serving(failures)
     run_parity(failures)
     run_profile(latency_s)
     train_launches, step_s = run_training(failures)
     run_train_parity(failures)
-    pallas_launches, _ = run_serving(failures, impl="pallas", phase="serving forms")
+    pallas_launches, _ = run_serving(failures, impl="pallas", phase="serving forms", profiled=True)
     run_serving(failures, impl="xla", phase="serving forms")
     run_forms_parity(failures)
     norm_launches = run_fused_norm(failures)
     ablate_launches, ablate_entry = run_ablate(failures)
-    warp_launches = run_bench_warp(failures, totals)
+    warp_launches = run_bench_warp(failures)
     totals["fused_temporal_layer_ablate"] = ablate_entry
 
     csrc = "cvpr23_lfdm_torch/csrc/"

@@ -11,10 +11,17 @@
 //   C (16x8, fp32):       c[0..1] = (row grp, cols 2q, 2q+1), c[2..3] = (row grp+8, same cols)
 // Two C tiles side by side (16 columns) are, packed to bf16, the A fragment
 // of the next product over those 16 columns: {c0[0..1], c0[2..3], c1[0..1], c1[2..3]}.
+//
+// The strip helpers at the end (strip_abT, bias_max, to_a, strip_pv) are the
+// attention steps of one warp on one (pixel, head) unit of F <= 64 frames and
+// d = 32 channels: scores, bias and row max, the probabilities as A
+// fragments, and their product with V. packed_attention.cu uses them;
+// headpacked_attention.cu keeps its own copies of the same code.
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace lfdm {
@@ -69,6 +76,11 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
 
+// 4 bytes global -> shared (cached in L1 and L2); completes at cp_async_wait_all
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -78,5 +90,89 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // the eight rows one ldmatrix matrix reads fall on eight different groups of
 // four banks.
 __device__ __forceinline__ int swz(int r, int c) { return r * 64 + ((c ^ ((r >> 1) & 3)) << 4); }
+
+// max and sum over the four lanes of a quad (the lanes that hold one C-fragment row)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc = rows 16s..16s+15 of tile ta times the first 8 NT rows of tile tb,
+// transposed, over the 32 channels (swizzled [rows][32] bf16 tiles at
+// shared-memory addresses ta, tb): a [16, 8 NT] strip of scores.
+template <int NT>
+__device__ __forceinline__ void strip_abT(uint32_t ta, uint32_t tb, int s, int lane,
+                                          float (&acc)[NT][4]) {
+  const int r = 16 * s + (lane & 7) + ((lane >> 3) & 1) * 8;
+  uint32_t a0[4], a1[4];
+  ldmatrix_x4(a0, ta + swz(r, lane >> 4));
+  ldmatrix_x4(a1, ta + swz(r, 2 + (lane >> 4)));
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t bk[4];
+    ldmatrix_x4(bk, tb + swz(8 * n + (lane & 7), lane >> 3));
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    mma_bf16(acc[n], a0, bk[0], bk[1]);
+    mma_bf16(acc[n], a1, bk[2], bk[3]);
+  }
+}
+
+// Adds the bias (sbias, [F, F] fp32 in shared memory) to the strip's scores,
+// sets pad keys (j >= F) to -inf, and returns the maxima of the lane's two
+// rows (pad query rows take a zero bias).
+template <int NT>
+__device__ __forceinline__ void bias_max(float (&acc)[NT][4], const float* sbias, int s, int F,
+                                         int lane, float& m0, float& m1) {
+  const int i0 = 16 * s + (lane >> 2), i1 = i0 + 8, q2 = 2 * (lane & 3);
+  m0 = m1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * n + q2 + e;
+      const bool key = j < F;
+      acc[n][e] = key ? acc[n][e] + (i0 < F ? sbias[i0 * F + j] : 0.f) : -INFINITY;
+      acc[n][2 + e] = key ? acc[n][2 + e] + (i1 < F ? sbias[i1 * F + j] : 0.f) : -INFINITY;
+      m0 = fmaxf(m0, acc[n][e]);
+      m1 = fmaxf(m1, acc[n][2 + e]);
+    }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+}
+
+// The C fragments of each 16 columns, rounded to bf16, as one A fragment;
+// an odd NT leaves the last fragment's upper 8 columns zero.
+template <int NT>
+__device__ __forceinline__ void to_a(const float (&c)[NT][4], uint32_t (&a)[(NT + 1) / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < (NT + 1) / 2; ++j) {
+    a[j][0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+    a[j][1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+    a[j][2] = 2 * j + 1 < NT ? pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]) : 0u;
+    a[j][3] = 2 * j + 1 < NT ? pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]) : 0u;
+  }
+}
+
+// o += P tv over the 16 KT rows of tile tv (keys), P given as A fragments
+// per 16 keys; o holds the strip's [16, 32] result as four C tiles.
+template <int KT>
+__device__ __forceinline__ void strip_pv(const uint32_t (&pa)[KT][4], uint32_t tv, int lane,
+                                         float (&o)[4][4]) {
+  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, tv + swz(16 * j + r, 2 * p + (lane >> 4)));
+      mma_bf16(o[2 * p], pa[j], bv[0], bv[1]);
+      mma_bf16(o[2 * p + 1], pa[j], bv[2], bv[3]);
+    }
+}
 
 }  // namespace lfdm

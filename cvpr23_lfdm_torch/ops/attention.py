@@ -88,16 +88,27 @@ its warps' tiles added in warp order), and a second launch adds the
 chunks in index order. No atomics, so a step's gradients are the same bit
 for bit from run to run.
 
-`packed_temporal_attention` on the H100. Bound by bytes like the
-head-packed forward, and built like it (a block of four warps per (pixel,
-head), q, k, v as fp32 rows in shared memory), minus the rotary: in this
-layout a unit's rows are contiguous in F. The TPU kernel packs P pixels
-into one `[P*F, d]` tile and masks the cross-pixel scores with a
-`[P*F, P*F]` bias; the masked entries are exactly 0 after `exp`, so the
-kernel reads only each pixel's own `[F, F]` diagonal block of that bias and
-computes no cross-pixel score. The plain version runs the packed tiles
-against the whole bias, as the TPU kernel does, so the two are held
-together.
+`packed_temporal_attention` on the H100 (`csrc/packed_attention.cu`,
+replacing `_kernel` of `attention_pallas.py`). Bound by bytes like the
+head-packed forward. The TPU kernel packs P pixels into one `[P*F, d]`
+tile and masks the cross-pixel scores with a `[P*F, P*F]` bias; the masked
+entries are exactly 0 after `exp`, so the kernel reads only each pixel's
+own `[F, F]` diagonal block of that bias and computes no cross-pixel
+score. In bf16 (the `pallas` form) it is the head-packed forward's design
+without the rotary: a block per (batch, head, pixel chunk) keeps the
+diagonal bias blocks of its pixels in shared memory (block `x % P` for
+pixel `x`, so a chunk may start anywhere), each warp walks its pixels one
+(pixel, head) unit at a time, copies the unit's q, k, v rows by 16-byte
+`cp.async` into swizzled tiles (pad rows zero) and runs `mma.sync` query
+strips: scores, bias, the fp32 softmax in the C fragments, each row
+scaled by the reciprocal of its sum and only then rounded to bf16 (the
+Pallas rounding point) as the A fragments of `p·v`; outputs leave as
+16-byte row stores.
+:func:`_packed_chunks` sizes the chunks from the card's SM count. fp32
+keeps a block of four warps per unit on CUDA cores (fp32 rows in shared
+memory, FMA loops): TF32 would not hold the fp32 gates. The plain version
+runs the packed tiles against the whole bias, as the TPU kernel does, so
+the two are held together.
 """
 
 from __future__ import annotations
@@ -626,6 +637,25 @@ def packed_temporal_attention_plain(qkv, bias, heads: int, dim_head: int, pack: 
     return o.to(dt).reshape(b, hw, f, hd)
 
 
+_MAX_SMEM = 232448  # dynamic shared memory of one block on the H100
+
+
+def _packed_chunks(hw: int, batch: int, heads: int, f: int, pack: int, sms: int) -> int:
+    """Pixel chunks per (batch, head) of a bf16 packed-attention launch, one
+    block each: about two blocks for each of the card's `sms` SMs (two
+    blocks of eight warps fit on one), every chunk `ceil(hw / chunks)`
+    pixels but the last, none empty, and short enough that the block's
+    `min(pack, chunk)` diagonal `[F, F]` bias blocks fit in shared memory
+    beside eight warps' q, k, v tiles."""
+    chunks = max(1, min(hw, -(-2 * sms // (batch * heads))))
+    ppb = -(-hw // chunks)
+    tiles = 8 * 3 * 16 * -(-f // 16) * 64
+    fit = (_MAX_SMEM - tiles - 127) // (f * f * 4)  # 8 slots at F = 64
+    if min(pack, ppb) > fit:
+        ppb = fit
+    return -(-hw // ppb)
+
+
 def packed_temporal_attention(qkv, bias, heads: int, dim_head: int, pack: int):
     """Masked attention over the frame axis, P pixels per tile.
 
@@ -638,8 +668,9 @@ def packed_temporal_attention(qkv, bias, heads: int, dim_head: int, pack: int):
 
     Returns `[B, HW, F, heads*d]`. CPU tensors take the plain version; CUDA
     tensors launch `csrc/packed_attention.cu` (d = 32, F <= 64), which reads
-    only the diagonal `[F, F]` blocks of `bias`, or raise. Forward-only, as
-    the JAX kernel: it raises when a gradient is asked of it on the card.
+    only the diagonal `[F, F]` blocks of `bias`, or raise; in bf16, `qkv`
+    must start on a 16-byte boundary. Forward-only, as the JAX kernel: it
+    raises when a gradient is asked of it on the card.
     """
     if qkv.device.type == "cpu":
         return packed_temporal_attention_plain(qkv, bias, heads, dim_head, pack)
@@ -666,12 +697,16 @@ def packed_temporal_attention(qkv, bias, heads: int, dim_head: int, pack: int):
         raise ValueError(f"{name}: arguments must be contiguous")
     _build.require_no_grad(name, qkv, bias)
     out = torch.empty((b, hw, f, hd), dtype=qkv.dtype, device=qkv.device)
+    chunks = 1
+    if qkv.dtype == torch.bfloat16:
+        _check_aligned(name, qkv, out)
+        chunks = _packed_chunks(hw, b, heads, f, pack, _sm_count(qkv.device.index))
     lib = _build.load("packed_attention")
     fname = "launch_packed_attention_" + _suffix(qkv.dtype)
     fn = getattr(lib, fname)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(_build.ptr(qkv), _build.ptr(bias), _build.ptr(out), b, f, hw, heads, pack,
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(_build.ptr(qkv), _build.ptr(bias), _build.ptr(out), b, f, hw, heads, pack, chunks,
               _build.stream(qkv.device))
     _build.check(lib, fname, code)
     packed_temporal_attention.launches += 1

@@ -8,18 +8,18 @@ warp_video_tiled` (`csrc/warp_video.cu`). Semantics are those of
 `padding_mode='zeros'`, bilinear, grid last axis `(x, y)` in [-1, 1], in
 channel-last layout.
 
-The CUDA kernel. The TPU kernel samples through a one-hot matmul over a
+The CUDA kernels. The TPU kernel samples through a one-hot matmul over a
 window of the source around each output tile, and a fit check sends any
 tile whose corners leave the window to a gather fallback. On the H100 a
 warp is bound by bytes: the four corners of each output are read from
 the shared `[B, H, W, C]` source (which stays in the 50 MB L2 at every
-decode scale) and the output `[B, F, H, W, C]` is written once. So the
-kernel gives one thread to each output element, with neighbouring threads
-on neighbouring channels of one pixel (coalesced corner reads and output
-writes); out-of-image corners weigh zero; it accumulates in fp32 and
-writes the source's dtype. It is exact for every flow, so it has no
-windows, tiles or fit check, and the generator uses it at every decode
-scale.
+decode scale) and the output `[B, F, H, W, C]` is written once.
+`csrc/warp_video.cu` gives one thread to each output element, with
+neighbouring threads on neighbouring channels of one pixel (coalesced
+corner reads and output writes); out-of-image corners weigh zero; it
+accumulates in fp32 and writes the source's dtype. It is exact for every
+flow, so it has no windows, tiles or fit check, and the generator uses it
+at every decode scale.
 
 :func:`warp_onehot` and :func:`warp_gather` are the counterparts of the
 Pallas kernels of the same names in `warp_pallas.py`: one source per grid,
@@ -27,9 +27,14 @@ fused with a blend (none, `* occ`, `* occ + prev * (1 - occ)`), everything
 cast to fp32 and an fp32 result. On the TPU they are two formulations of
 one function (a dense one-hot `[HW, HW]` matrix product, which caps `H*W`
 at 1024 to fit VMEM, and a lane gather without a cap); on the H100 both
-names launch one kernel, `csrc/warp_blend.cu` (one thread per output
-element, the blend in its epilogue), and neither has a size cap. So the
-JAX package's `tiled_max_res` / `MAX_HW` limits have no counterpart here.
+names launch one kernel, `csrc/warp_blend.cu`, and neither has a size cap.
+So the JAX package's `tiled_max_res` / `MAX_HW` limits have no counterpart
+here. That kernel works out each output pixel's four corners (32-bit
+offsets inside its image, weights, `csrc/bilinear.cuh`) once, by one
+thread of a block that owns 256 consecutive pixels, then streams the
+tile's pixels x channels outputs with all its threads (16-byte vectors
+where `C % 4 == 0`), the blend in its epilogue; it rounds every step as
+the plain version does. One image may hold at most 2^31 - 1 elements.
 :func:`warp_blend_plain` is their plain version.
 """
 
@@ -120,6 +125,7 @@ def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
 
 
 _BLENDS = {"none": 0, "occlusion": 1, "previous": 2}
+_MAX_IMAGE = 2 ** 31 - 1  # elements of one [H, W, C] image of the fused warp+blend
 
 
 def _blend_mode(occlusion, previous, blend):
@@ -170,6 +176,9 @@ def _warp_blend(wrapper, image, grid, occlusion, previous, blend):
             raise TypeError(f"{name}: {key} dtype {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: arguments must be contiguous")
+    if h * w * c > _MAX_IMAGE:
+        raise ValueError(f"{name}: one image holds {h * w * c} elements, more than "
+                         f"the kernel's 32-bit offsets reach ({_MAX_IMAGE})")
     _build.require_no_grad(name, *(t for t, _ in used.values()))
     f32 = {key: t.float() for key, (t, _) in used.items()}  # as the TPU wrappers cast
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=image.device)
@@ -199,7 +208,8 @@ def warp_onehot(image, grid, occlusion=None, previous=None, blend=None):
 
     Returns `[B, H, W, C]` fp32. CPU tensors take the plain version; CUDA
     tensors launch `csrc/warp_blend.cu` (forward-only) or raise. No cap on
-    `H*W`, unlike the TPU kernel of this name.
+    `H*W`, unlike the TPU kernel of this name; one image may hold at most
+    2^31 - 1 elements (`H*W*C`).
     """
     return _warp_blend(warp_onehot, image, grid, occlusion, previous, blend)
 

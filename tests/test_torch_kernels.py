@@ -210,16 +210,67 @@ def _packed_inputs(dev, dtype, b, hw, f, heads, focus, seed=5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,hw,f,focus", [(1, 64, 40, False), (2, 16, 40, True), (2, 6, 7, True),
-                                          (1, 8, 64, False)])
+                                          (1, 8, 64, False), (1, 1024, 40, False),
+                                          (1, 1024, 7, False), (2, 16, 33, True), (1, 6, 48, False),
+                                          (1, 16, 64, True), (1, 1024, 64, False)])
 def test_packed_attention_kernel(dev, dtype, b, hw, f, focus):
     heads = 8
     qkv, bias, pack = _packed_inputs(dev, dtype, b, hw, f, heads, focus)
     before = A.packed_temporal_attention.launches
     with torch.no_grad():
         out = A.packed_temporal_attention(qkv, bias, heads, 32, pack)
-    assert A.packed_temporal_attention.launches == before + 1
+        again = A.packed_temporal_attention(qkv, bias, heads, 32, pack)
+    assert A.packed_temporal_attention.launches == before + 2
     assert out.shape == (b, hw, f, heads * 32) and out.dtype == dtype
+    assert torch.equal(out, again)  # no atomics, one order of sums: the same bits
     _close(out, A.packed_temporal_attention_plain(qkv, bias, heads, 32, pack), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms,hw,f", [(12, 1024, 40), (12, 200, 40), (28, 96, 64), (12, 1024, 7),
+                                      (200, 1024, 7)])
+def test_packed_attention_kernel_at_uneven_chunks(dev, monkeypatch, sms, hw, f):
+    """Chunk counts that do not divide HW and chunk starts that are not
+    multiples of P: the card's SM count, which sizes the chunks, is faked."""
+    heads = 8
+    monkeypatch.setattr(A, "_sm_count", lambda index: sms)
+    qkv, bias, pack = _packed_inputs(dev, torch.bfloat16, 1, hw, f, heads, False)
+    chunks = A._packed_chunks(hw, 1, heads, f, pack, sms)
+    assert hw % chunks and -(-hw // chunks) % pack
+    with torch.no_grad():
+        out = A.packed_temporal_attention(qkv, bias, heads, 32, pack)
+    _close(out, A.packed_temporal_attention_plain(qkv, bias, heads, 32, pack), torch.bfloat16)
+
+
+# (hw, batch, heads, F, pack, SMs): the serving shapes on 132 SMs, uneven
+# splits, a large P at F = 64 (bias slots capped by shared memory), odd sizes
+@pytest.mark.parametrize("hw,batch,heads,f,pack,sms", [
+    (1024, 1, 8, 40, 4, 132), (256, 1, 8, 40, 4, 132), (64, 1, 8, 40, 4, 132),
+    (16, 1, 8, 40, 4, 132), (1024, 1, 8, 40, 4, 12), (1024, 1, 8, 7, 32, 132),
+    (4096, 1, 1, 64, 4096, 132), (6, 2, 8, 48, 2, 132), (1000, 2, 3, 33, 8, 132)])
+def test_packed_chunks_cover_every_pixel_once(hw, batch, heads, f, pack, sms):
+    """`_packed_chunks` against the kernel's split: block `chunk` owns pixels
+    `[chunk * ppb, min((chunk + 1) * ppb, hw))`, `ppb = ceil(hw / chunks)`, and
+    its `min(8, ppb)` warps take `ceil(ppb / warps)` consecutive pixels each.
+    Every pixel is covered once, no chunk is empty, the chunk count is near two
+    blocks per SM (or what shared memory allows) and the block fits."""
+    chunks = A._packed_chunks(hw, batch, heads, f, pack, sms)
+    ppb = -(-hw // chunks)
+    warps = max(1, min(8, ppb))
+    px = -(-ppb // warps)
+    seen = []
+    for chunk in range(chunks):
+        x0, x1 = min(chunk * ppb, hw), min((chunk + 1) * ppb, hw)
+        assert x1 > x0
+        for w in range(warps):
+            wx0 = min(x0 + w * px, x1)
+            seen.extend(range(wx0, min(wx0 + px, x1)))
+    assert sorted(seen) == list(range(hw))
+    target = max(1, min(hw, -(-2 * sms // (batch * heads))))
+    assert chunks >= -(-hw // -(-hw // target))  # more only where shared memory caps a chunk
+    slots = min(pack, ppb)
+    smem = -(-slots * f * f * 4 // 128) * 128 + warps * 3 * 16 * -(-f // 16) * 64
+    assert smem <= A._MAX_SMEM
 
 
 @pytest.mark.cuda
@@ -237,6 +288,10 @@ def test_packed_attention_wrapper_checks_arguments(dev):
         A.packed_temporal_attention(qkv, bias, 2, 32, 3)  # pack does not divide HW
     with pytest.raises(RuntimeError, match="forward-only"):
         A.packed_temporal_attention(qkv.clone().requires_grad_(), bias, 2, 32, pack)
+    # bf16 moves 16-byte vectors: a view that starts 2 bytes in raises, no fallback
+    flat = torch.zeros(qkv.numel() + 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        A.packed_temporal_attention(flat[1:].view(qkv.shape), bias, 2, 32, pack)
 
 
 @pytest.mark.cuda
@@ -282,13 +337,24 @@ def test_groupnorm_film_silu_wrapper_checks_arguments(dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("blend", ["none", "occlusion", "previous"])
 @pytest.mark.parametrize("fn", ["warp_onehot", "warp_gather"])
-def test_warp_blend_kernel(dev, dtype, blend, fn):
+@pytest.mark.parametrize("c,w,offset", [(67, 20, 0), (1, 21, 0), (4, 21, 0), (67, 21, 0),
+                                        (128, 21, 0), (256, 21, 0), (128, 21, 1)])
+def test_warp_blend_kernel(dev, dtype, blend, fn, c, w, offset):
+    """Channel counts below, at and above a warp, the float4 path (C % 4 == 0)
+    and, with `offset`, inputs that start one element in (the float path);
+    odd W; grids out to +-1.4."""
     g = torch.Generator(device=dev).manual_seed(7)
-    b, h, w, c = 2, 24, 20, 67
-    img = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+    b, h = 2, 24
+
+    def make(*shape, rand=False):
+        n = torch.Size(shape).numel()
+        buf = (torch.rand if rand else torch.randn)(n + offset, generator=g, device=dev)
+        return buf[offset:].view(shape).to(dtype)
+
+    img = make(b, h, w, c)
     grid = 1.4 * torch.rand(b, h, w, 2, generator=g, device=dev) * 2 - 1.4
-    occ = torch.rand(b, h, w, 1, generator=g, device=dev).to(dtype) if blend != "none" else None
-    prev = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype) if blend == "previous" else None
+    occ = make(b, h, w, 1, rand=True) if blend != "none" else None
+    prev = make(b, h, w, c) if blend == "previous" else None
     wrapper = getattr(W, fn)
     before = wrapper.launches
     with torch.no_grad():
@@ -314,6 +380,10 @@ def test_warp_blend_wrapper_checks_arguments(dev):
         W.warp_onehot(img, grid, blend="previous")
     with pytest.raises(RuntimeError, match="forward-only"):
         W.warp_onehot(img.clone().requires_grad_(), grid)
+    # one image of 2^31 elements: beyond the kernel's 32-bit offsets, it raises
+    big = torch.empty(1, 1024, 1024, 2048, device=dev)
+    with pytest.raises(ValueError, match="32-bit"):
+        W.warp_onehot(big, torch.zeros(1, 1024, 1024, 2, device=dev))
 
 
 @pytest.mark.cuda
