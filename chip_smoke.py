@@ -6,8 +6,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 1. env      — GPU name and power limit, torch/CUDA versions, and the build
               of the seven kernel sources in `cvpr23_lfdm_torch/csrc/` and
-              of the seven ablation builds of the temporal layer (one `nvcc`
-              per library, all started together).
+              of the eight ablation builds of the temporal layer (one `nvcc`
+              per library, all started together); the `-Xptxas -v` lines,
+              and per instantiation of the bf16 temporal-layer kernel its
+              registers and spills (gated: no spill).
 2. kernel   — each kernel against its plain PyTorch version at every shape
               the serving path (fused layers, warp) or the training step
               (head-packed attention, forward and backward, B=5) gives it,
@@ -21,7 +23,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               torch.profiler, without the host's work around the
               launches); the least time the card
               could take (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s bf16,
-              whichever is larger). Likewise the packed attention at the
+              whichever is larger). The temporal layer also with its
+              device time alone per call (torch.profiler, one kernel per
+              call) and, in both dtypes and the focus case, run twice for
+              bit-identity. Likewise the packed attention at the
               four B=1 serving shapes and a focus case (library: SDPA on
               pre-permuted q, k, v; device times alone of both; run twice
               for bit-identity), the fused GroupNorm+FiLM+SiLU at every
@@ -44,7 +49,8 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               (`tests/golden/torch_port_mug_ddim10.npz`, 8 frames).
 
 5. profile  — one serving video under torch.profiler: device time by
-              kernel and its share of the serving latency; the full table
+              kernel (and the temporal layer's sum over its 100 calls) and
+              its share of the serving latency; the full table
               goes to `chip_smoke_out/profile_serving.json`.
 6. train    — `DMTrainer.train_step` at the full width of the MUG config
               (UNet dim 64, mults (1,2,4,8), 8x32 heads, 40 frames, 128²,
@@ -79,7 +85,8 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               B=1 and B=8, `fused_norm=True` against `False`: both times,
               the output difference, 40 launches per eval (gated).
 11. ablate   — `scripts/bench_attn_ablate.py` at `[8, 40, 1024, 64]` bf16:
-              ms per ablation build and `full - variant`; `full` is
+              ms per ablation build (eight stages, the last the cluster's
+              sum of the partials) and `full - variant`; `full` is
               bit-equal to the serving kernel and held against the plain
               layer.
 12. bench warp — `scripts/bench_warp.py`: the decode-warp variants at
@@ -95,7 +102,7 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
-`per`; for rows 4-6, 8 and 9 also `device_ms` / `library_device_ms`, the
+`per`; for rows 1, 4-6, 8 and 9 also `device_ms` / `library_device_ms`, the
 same calls' device time alone from torch.profiler), the `nvidia-smi`
 name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without that
@@ -119,9 +126,8 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 F_FRAMES, HEADS, DH = 40, 8, 32
 DDIM_STEPS = 10
-# (C, HW) of the serving path's calls and their count per UNet eval
-TEMPORAL_SHAPES = {(64, 1024): 3, (128, 256): 1, (64, 256): 1, (256, 64): 1,
-                   (128, 64): 1, (512, 16): 2, (256, 16): 1}
+# (C, HW) of the serving path's calls and their count per UNet eval (the
+# temporal layer's: `cvpr23_lfdm_torch/scripts/_common.py::TEMPORAL_SHAPES`)
 LINEAR_SHAPES = {(64, 1024): 2, (128, 256): 1, (256, 64): 1, (512, 16): 1,
                  (256, 16): 1, (128, 64): 1, (64, 256): 1}
 # decode warps per video: (H, C) of the shared source, F = 40 grids
@@ -169,27 +175,9 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 10, launches: int | None = None) -> float | None:
-    """Device time per call of `fn`: the kernels and copies it puts on the
-    card, summed by torch.profiler over `reps` calls after one warm-up, over
-    `reps`. The host's work around the launches is not in it. With
-    `launches` (device activities per call), a profile that recorded another
-    number of them is taken once more, then given up (None): in the last
-    phase of a full run of this script the profiler has recorded half of a
-    run's kernels, or none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from cvpr23_lfdm_torch.utils.profiling import device_ms as read
 
-    for _ in range(2):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [r for r in profile_rows(prof) if r["on_device"]]
-        if launches is None or sum(r["count"] for r in rows) == launches * reps:
-            return sum(r["device_ms"] for r in rows) / reps
-    return None
+    return read(fn, reps, launches)
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -209,6 +197,30 @@ def torch_isfinite(t) -> bool:
     import torch
 
     return bool(torch.isfinite(t.float()).all())
+
+
+def ptxas_report(log: str) -> dict:
+    """`nvcc -Xptxas -v` output -> {mangled kernel name: {"registers",
+    "spill_stores", "spill_loads"}}."""
+    import re
+
+    report, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            report[name] = {"registers": None, "spill_stores": None, "spill_loads": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+            name = None
+    return report
 
 
 def gpu_line() -> str:
@@ -261,6 +273,7 @@ def check_kernels(failures: list) -> dict:
 
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import warp as W
+    from cvpr23_lfdm_torch.scripts._common import TEMPORAL_SHAPES
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -282,17 +295,23 @@ def check_kernels(failures: list) -> dict:
             bias = A.build_bias_flat(pos_bias, 1, F_FRAMES)
             cos_t, sin_t = A.rotary_tables(F_FRAMES, HEADS, DH, DH ** -0.5, dtype, dev)
             args = (x, gamma, wqkv, wout, bias, cos_t, sin_t, HEADS, DH)
-            res = compare(A.fused_temporal_layer(*args), A.fused_temporal_layer_plain(*args), TOL[dname])
+            call = lambda: A.fused_temporal_layer(*args)
+            out = call()
+            res = compare(out, A.fused_temporal_layer_plain(*args), TOL[dname])
+            same = bool(torch.equal(out, call()))  # no atomics: the same bits when run again
+            res["ok"] = res["ok"] and same
             times = None
             if timed:
-                times = {"kernel_ms": median_ms(lambda: A.fused_temporal_layer(*args)),
+                times = {"kernel_ms": median_ms(call),
                          "plain_ms": median_ms(lambda: A.fused_temporal_layer_plain(*args), reps=5),
-                         "library_ms": None}
+                         "library_ms": None,
+                         "kernel_device_ms": device_ms(call, launches=1), "library_device_ms": None}
             nbytes = (2 * x.numel() + wqkv.numel() + wout.numel() + 2 * cos_t.numel()) * esz \
                 + (gamma.numel() + bias.numel()) * 4
             flops = 2 * F_FRAMES * hw * c * 4 * hd + 4 * hw * HEADS * F_FRAMES * F_FRAMES * DH
             record("fused_temporal_layer", [1, F_FRAMES, hw, c], dname, res,
-                   n_eval * DDIM_STEPS, times, nbytes, flops)
+                   n_eval * DDIM_STEPS, times, nbytes, flops, bit_identical_twice=same,
+                   **({"device_launches_per_call": 1} if timed else {}))
         # focus-present rows (not on the serving path): B=2, one entry focused
         c, hw = 64, 256
         x = randn(2, F_FRAMES, hw, c).to(dtype)
@@ -302,8 +321,12 @@ def check_kernels(failures: list) -> dict:
         bias = A.build_bias_flat(pos_bias, 2, F_FRAMES, torch.tensor([True, False], device=dev))
         cos_t, sin_t = A.rotary_tables(F_FRAMES, HEADS, DH, DH ** -0.5, dtype, dev)
         args = (x, gamma, wqkv, wout, bias, cos_t, sin_t, HEADS, DH)
-        record("fused_temporal_layer", [2, F_FRAMES, hw, c, "focus"], dname,
-               compare(A.fused_temporal_layer(*args), A.fused_temporal_layer_plain(*args), TOL[dname]), 0)
+        out = A.fused_temporal_layer(*args)
+        res = compare(out, A.fused_temporal_layer_plain(*args), TOL[dname])
+        same = bool(torch.equal(out, A.fused_temporal_layer(*args)))
+        res["ok"] = res["ok"] and same
+        record("fused_temporal_layer", [2, F_FRAMES, hw, c, "focus"], dname, res, 0,
+               bit_identical_twice=same)
 
         for (c, n), n_eval in LINEAR_SHAPES.items():
             x = randn(1, F_FRAMES, n, c).to(dtype)
@@ -533,6 +556,8 @@ def run_profile(latency_s: float) -> None:
     report = {"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy,
               "serving_latency_ms": latency_s * 1e3,
               "device_busy_share": busy / (latency_s * 1e3),
+              "fused_temporal_layer_device_ms": sum(
+                  r["device_ms"] for r in device if "fused_temporal_layer" in r["name"]),
               "top": device[:25]}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "profile_serving.json"), "w") as f:
@@ -1212,12 +1237,19 @@ def main() -> int:
     built = _build.build(names + ["headpacked_attention"] + new_sources + variants)
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in built["logs"].items()}
+    row1_bf16 = {k: v for k, v in ptxas_report(built["logs"]["fused_temporal_layer"]).items()
+                 if "fused_temporal_layer_mma_kernel" in k}
+    failures: list[str] = []
+    if not row1_bf16 or any(v["spill_stores"] or v["spill_loads"] for v in row1_bf16.values()):
+        failures.append("fused_temporal_layer bf16: ptxas reports a spill (or no kernel)")
     emit({"phase": "env", "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "build_s": built["seconds"], "ptxas": ptxas})
+          "build_s": built["seconds"], "ptxas": ptxas,
+          "ptxas_fused_temporal_layer_bf16": {
+              f"fused_temporal_layer_mma_kernel<NT={k.split('kernelILi')[1].split('E')[0]}>": v
+              for k, v in row1_bf16.items()}})
 
-    failures: list[str] = []
     totals = check_kernels(failures)
     totals.update(check_headpacked(failures))
     totals.update(check_new_kernels(failures))

@@ -67,8 +67,12 @@ def _start(name: str, defines: tuple[str, ...] = ()) -> tuple[subprocess.Popen, 
     return proc, tmp, out
 
 
-def _finish(name: str, started) -> str:
-    if started is None:
+def _finish(name: str, started, defines: tuple[str, ...] = ()) -> str:
+    if started is None:  # built before: its saved nvcc output
+        log = _target(name, defines)[: -len(".so")] + ".log"
+        if os.path.exists(log):
+            with open(log) as f:
+                return f.read()
         return ""
     proc, tmp, out = started
     log, _ = proc.communicate()
@@ -84,13 +88,14 @@ def build(names: list) -> dict:
     """Build the named kernels, one `nvcc` per library, all started together.
     An entry is a source name or `(name, (define, ...))`. Returns
     `{"seconds": wall time, "logs": {label: nvcc output}}` (the `-Xptxas -v`
-    register and shared-memory report), a variant labelled `name[defines]`."""
+    register and shared-memory report; for a library built before, the
+    output saved beside it), a variant labelled `name[defines]`."""
     t0 = time.perf_counter()
     jobs = [(n, ()) if isinstance(n, str) else (n[0], tuple(n[1])) for n in names]
     label = lambda n, d: n if not d else f"{n}[{','.join(d)}]"
     with _lock:
-        started = {label(n, d): (n, _start(n, d)) for n, d in jobs}
-        logs = {key: _finish(n, s) for key, (n, s) in started.items()}
+        started = {label(n, d): (n, d, _start(n, d)) for n, d in jobs}
+        logs = {key: _finish(n, s, d) for key, (n, d, s) in started.items()}
     return {"seconds": time.perf_counter() - t0, "logs": logs}
 
 

@@ -36,15 +36,26 @@ points); they are the CPU path and the yardstick of the kernels, never a
 fallback on the card. Each wrapper counts its launches in `.launches`.
 
 `fused_temporal_layer` on the H100. The layer is bound by operations:
-about 7 GFLOP against 10 MB of activations at the 64-channel 32² level.
-One block owns P pixels of one batch entry (P·C ≤ 256) and does the whole
-layer for them in shared memory: LN, then per head the 96 q/k/v columns
-of the projection, rotary, the 40×40 softmax attention (one warp per
-query row, a max per head) and that head's slice of the out-projection,
-accumulated in fp32, then the residual. Nothing but `x` and the output
-touches device memory. The projections are FMA loops over shared-memory
-tiles (no tensor cores yet); the bias comes in as `bias_flat`, so focus
-rows are `NEG_INF` off the diagonal as on the TPU.
+about 7 GFLOP against 10 MB of activations at the 64-channel 32² level;
+nothing but `x`, the weights and the output touches device memory. In bf16
+(serving) it runs on tensor cores with the heads spread over a thread-block
+cluster (:func:`temporal_layer_plan`): the K blocks of a cluster share a
+chunk of P pixels, each block `heads // K` heads (K = 1, no exchange, at
+the two largest levels, 2 at the middle ones, 8, one head per block, at the
+16-pixel ones; C a multiple of 16). A block copies its x rows
+into a swizzled bf16 tile by 16-byte `cp.async` and LayerNorms them in
+place; per head, the q|k|v projection on `mma.sync` (one warp per 16-row
+query strip), rotary on the C fragments, the softmax attention over the
+frames with `csrc/mma.cuh`'s strips (a max per head; `exp` rounded to bf16
+for `p·v` and the denominator, `o` after the division, as the Pallas
+kernel rounds) and the head's out-projection on `mma.sync` into the block's
+fp32 partial in shared memory. The cluster then sums the partials through
+distributed shared memory in rank order, each block its slice of the
+columns, and adds the residual: no atomics, the same bits every run. fp32
+keeps the CUDA-core kernel (P·C ≤ 256 pixels' rows per block, the heads
+one after another, FMA products over shared memory): TF32 would not hold
+the fp32 gates. The bias comes in as `bias_flat`, so focus rows are
+`NEG_INF` off the diagonal as on the TPU.
 
 `fused_spatial_linear_layer` on the H100. The k-softmax reduces over all
 HW pixels of a frame, so the layer is a chain of two launches. The first
@@ -124,6 +135,9 @@ from cvpr23_lfdm_torch.ops import _build
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 _TINY = float(np.finfo(np.float32).tiny)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_MAX_SMEM = 232448  # dynamic shared memory of one block on the H100
+_SMEM_PER_SM = 233472  # shared memory of one SM on the H100
+_REGS = 160  # registers per thread of the bf16 temporal-layer kernel (ptxas: 125-159)
 
 
 def rotary_tables(f: int, heads: int, dim_head: int, scale: float, dtype,
@@ -320,22 +334,106 @@ def _launch_fused_temporal_layer(defines, x, gamma, wqkv, wout, bias_flat, cos_t
             or tuple(sin_t.shape) != (f, 3 * hd):
         raise ValueError("fused_temporal_layer: bias or rotary table shape")
     out = torch.empty_like(x)
+    ints = (b, f, hw, c, heads)
+    if x.dtype == torch.bfloat16:
+        if c % 16:
+            raise ValueError(f"fused_temporal_layer: the bf16 kernel needs C % 16 == 0 (C={c})")
+        _check_aligned("fused_temporal_layer", x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, out)
+        plan = temporal_layer_plan(b, f, hw, c, heads, _sm_count(x.device.index))
+        ints += (plan["pixels"], plan["cluster"])
     lib = _build.load("fused_temporal_layer", defines)
     name = "launch_fused_temporal_layer_" + _suffix(x.dtype)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * len(ints) + [ctypes.c_float, ctypes.c_void_p]
     code = fn(
         *(_build.ptr(t) for t in (x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, out)),
-        b, f, hw, c, heads, eps, _build.stream(x.device),
+        *ints, eps, _build.stream(x.device),
     )
     _build.check(lib, name, code)
     return out
 
 
+def temporal_layer_smem(f: int, c: int, pixels: int, heads_per_block: int) -> int:
+    """Dynamic shared memory of one block of the bf16 temporal-layer kernel
+    (the mirror of `layout` in `csrc/fused_temporal_layer.cu`): the x tile
+    `[P*FP, C]` bf16 (FP = 16*ceil(F/16)), the head's W_qkv columns `[C, 96]`,
+    the fp32 partial `[P*F, C+8]` (over the x tile and W_qkv when a block has
+    one head), the head's W_out rows `[32, C]`, the q, k, v tiles
+    `[P*FP, 32]`, the `[F, F]` fp32 bias and the fp32 LN gamma `[C]`."""
+    fp = 16 * -(-f // 16)
+    xb = pixels * fp * c * 2
+    wb = 192 * c
+    pb = -(-(pixels * f * (c + 8) * 4) // 128) * 128
+    top = max(xb + wb, pb) if heads_per_block == 1 else xb + wb + pb
+    return top + 64 * c + 3 * pixels * fp * 64 + -(-(f * f * 4) // 128) * 128 + 4 * c
+
+
+def _waves(blocks: int, warps: int, smem: int, sms: int) -> int:
+    """Waves of `blocks` blocks of `warps` warps and `smem` bytes on `sms`
+    H100 SMs: a block takes 1 KB of shared memory beside its own and
+    `_REGS` registers per thread."""
+    per_sm = min(_SMEM_PER_SM // (smem + 1024), 65536 // (32 * warps * _REGS), 64 // warps)
+    return -(-blocks // (sms * max(per_sm, 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def temporal_layer_plan(b: int, f: int, hw: int, c: int, heads: int, sms: int,
+                        cluster: int | None = None) -> dict:
+    """Launch plan of the bf16 temporal-layer kernel on a card of `sms` SMs.
+
+    A cluster of K blocks owns a chunk of P pixels of one batch entry, each
+    block `heads // K` of its heads; a block runs one warp per 16-row query
+    strip, P*ceil(F/16) <= 8 of them. For a given K, P is the largest that
+    fits shared memory, cut while the grid has fewer than two blocks per SM.
+    Of the clusters (K a divisor of `heads` from 2 to 8) the plan takes the
+    smallest whose grid still has a block for every two SMs and fits (each
+    block then recomputes the LN and reads the partials of fewer others),
+    else the largest that fits. K = 1 (no LN recomputed, no exchange, all
+    heads one after another in a block) replaces it where its grid's waves
+    times `heads` are at most the cluster's waves times its heads per block
+    plus one: a block takes about a head's time per head, and about one more
+    for the LN and the exchange (`bench_temporal_layer --scan`). Unless
+    `cluster` names K. Raises when no plan fits. Cached: do not change the
+    returned dict."""
+    kt = -(-f // 16)
+    ks = [d for d in range(1, 9) if heads % d == 0]
+    if cluster is not None:
+        if cluster < 1 or cluster > 8 or heads % cluster:
+            raise ValueError(f"fused_temporal_layer: cluster {cluster} for {heads} heads")
+        ks = [cluster]
+    plans = {}
+    for k in ks:
+        hpb = heads // k
+        p = max(1, min(8 // kt, hw))
+        while p > 1 and temporal_layer_smem(f, c, p, hpb) > _MAX_SMEM:
+            p -= 1
+        while p > 1 and b * -(-hw // p) * k < 2 * sms:
+            p -= 1
+        smem = temporal_layer_smem(f, c, p, hpb)
+        if smem <= _MAX_SMEM:
+            grid = (k, -(-hw // p), b)
+            plans[k] = {"pixels": p, "cluster": k, "heads_per_block": hpb, "warps": p * kt,
+                        "smem": smem, "grid": grid,
+                        "waves": _waves(k * grid[1] * b, p * kt, smem, sms)}
+    if not plans:
+        smem = temporal_layer_smem(f, c, 1, heads // ks[-1])
+        raise ValueError(f"fused_temporal_layer: a block needs {smem} bytes of shared memory "
+                         f"(F={f}, C={c}, {heads // ks[-1]} heads per block) > {_MAX_SMEM}")
+    clustered = [q for k, q in plans.items() if k > 1]
+    best = next((q for q in clustered if b * q["grid"][1] * q["cluster"] >= sms / 2),
+                clustered[-1] if clustered else None)
+    one = plans.get(1)
+    if one is not None and (best is None or one["waves"] * heads
+                            <= best["waves"] * (best["heads_per_block"] + 1)):
+        return one
+    return best
+
+
 # Stages of `csrc/fused_temporal_layer.cu` that an ablation build removes,
-# in the order the kernel runs them.
-ABLATIONS = ("layernorm", "qkv", "rotary", "scores", "softmax", "pv", "outproj")
+# in the order the kernel runs them (`reduce`, the cluster's sum of the
+# blocks' partials, only in the bf16 kernel).
+ABLATIONS = ("layernorm", "qkv", "rotary", "scores", "softmax", "pv", "outproj", "reduce")
 
 
 def ablation_defines(stage: str) -> tuple[str, ...]:
@@ -637,7 +735,6 @@ def packed_temporal_attention_plain(qkv, bias, heads: int, dim_head: int, pack: 
     return o.to(dt).reshape(b, hw, f, hd)
 
 
-_MAX_SMEM = 232448  # dynamic shared memory of one block on the H100
 
 
 def _packed_chunks(hw: int, batch: int, heads: int, f: int, pack: int, sms: int) -> int:

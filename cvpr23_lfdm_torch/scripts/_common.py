@@ -1,5 +1,6 @@
 """Shared pieces of the port's bench scripts: the `--device` flag, the
-repository's bench checkpoint, one JSON object per output line."""
+repository's bench checkpoint, the temporal layer's serving shapes, one JSON
+object per output line."""
 
 from __future__ import annotations
 
@@ -13,6 +14,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BENCH_CKPT = os.path.join(ROOT, "assets", "bench_ckpt")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (C, HW) of the temporal layer's calls in one `pallas3` UNet eval of the MUG
+# config (B=1, F=40, 8 heads of 32) and their count per eval
+TEMPORAL_SHAPES = {(64, 1024): 3, (128, 256): 1, (64, 256): 1, (256, 64): 1,
+                   (128, 64): 1, (512, 16): 2, (256, 16): 1}
 
 
 def add_device_arg(ap) -> None:

@@ -3,7 +3,9 @@
 
 PyTorch returns before the device finishes, so a call is timed between two
 CUDA events on the current stream; the median over the repetitions is the
-reading. The L2 cache is warm: every repetition sees the same tensors.
+reading (`time_fn`: the host's work in the call included). `device_ms`
+reads the device time alone from torch.profiler. The L2 cache is warm:
+every repetition sees the same tensors.
 """
 
 from __future__ import annotations
@@ -64,3 +66,25 @@ def profile_rows(prof) -> list:
                          "on_device": getattr(ev, "device_type", None) == DeviceType.CUDA})
     rows.sort(key=lambda r: -r["device_ms"])
     return rows
+
+
+def device_ms(fn, reps: int = 10, launches: int | None = None) -> float | None:
+    """Device time per call of `fn`: the kernels and copies it puts on the
+    card, summed by torch.profiler over `reps` calls after one warm-up, over
+    `reps`. The host's work around the launches is not in it. With
+    `launches` (device activities per call), a profile that recorded another
+    number of them is taken once more, then given up (None): late in a long
+    process the profiler has recorded half of a run's kernels, or none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in profile_rows(prof) if r["on_device"]]
+        if launches is None or sum(r["count"] for r in rows) == launches * reps:
+            return sum(r["device_ms"] for r in rows) / reps
+    return None

@@ -40,30 +40,53 @@ def _layer_inputs(rng, b, f, hw, dim, heads, dh):
     return x, gamma, wqkv, wout
 
 
-@pytest.mark.parametrize("hw,f,focus", [(16, 5, False), (64, 7, False), (32, 5, True)])
-def test_fused_temporal_layer_matches_pallas(hw, f, focus):
+# bf16: both round to bf16 at the same points (LN(x), rotated q|k|v, exp,
+# o, the projection, the residual), with fp32 sums in another order; a value
+# that lands on the other side of a rounding boundary moves by one bf16 ulp
+BF16_TOL = {"atol": 3e-2, "rtol": 2e-2}
+
+
+# (b, hw, f, focus, heads, dim_head, dim, dtype): the fp32 cases at the small
+# config, then bf16 at that config and at F = 40 with 8 heads of 32 channels
+@pytest.mark.parametrize("b,hw,f,focus,heads,dh,dim,dtype", [
+    (2, 16, 5, False, HEADS, DH, DIM, "float32"), (2, 64, 7, False, HEADS, DH, DIM, "float32"),
+    (2, 32, 5, True, HEADS, DH, DIM, "float32"),
+    (2, 16, 5, False, HEADS, DH, DIM, "bfloat16"), (2, 32, 5, True, HEADS, DH, DIM, "bfloat16"),
+    (2, 16, 40, False, 8, 32, 64, "bfloat16"), (2, 64, 7, True, 8, 32, 32, "bfloat16"),
+    (1, 32, 40, False, 8, 32, 128, "bfloat16"),
+])
+def test_fused_temporal_layer_matches_pallas(b, hw, f, focus, heads, dh, dim, dtype):
+    """The port's layer (its plain version on the CPU) against the JAX
+    package's Pallas kernel in interpret mode, on the same inputs: fp32 to
+    3e-5, bf16 to 3e-2 + 2e-2 |y| (the gate the bf16 kernel is held to on the
+    card against this plain version)."""
     rng = np.random.default_rng(3)
-    b = 2
-    x, gamma, wqkv, wout = _layer_inputs(rng, b, f, hw, DIM, HEADS, DH)
-    pos_bias = rng.standard_normal((HEADS, f, f)).astype(np.float32)
+    x, gamma, wqkv, wout = _layer_inputs(rng, b, f, hw, dim, heads, dh)
+    pos_bias = rng.standard_normal((heads, f, f)).astype(np.float32)
     mask = np.array([True, False]) if focus else None
-    scale = DH ** -0.5
+    scale = dh ** -0.5
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     jbias = jattn.build_bias_flat(jnp.asarray(pos_bias), b, f, None if mask is None else jnp.asarray(mask))
-    jcos, jsin = jattn.rotary_tables(f, HEADS, DH, scale, jnp.float32)
+    jcos, jsin = jattn.rotary_tables(f, heads, dh, scale, jdt)
     ref = jattn.fused_temporal_layer(
-        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(wqkv), jnp.asarray(wout),
-        jbias, jcos, jsin, HEADS, DH, interpret=True,
+        jnp.asarray(x).astype(jdt), jnp.asarray(gamma), jnp.asarray(wqkv).astype(jdt),
+        jnp.asarray(wout).astype(jdt), jbias, jcos, jsin, heads, dh, interpret=True,
     )
     tbias = tattn.build_bias_flat(_t(pos_bias), b, f, None if mask is None else _t(mask))
-    tcos, tsin = tattn.rotary_tables(f, HEADS, DH, scale, torch.float32)
+    tcos, tsin = tattn.rotary_tables(f, heads, dh, scale, tdt)
     # the port's tables and bias are the JAX ones exactly
     np.testing.assert_array_equal(tbias.numpy(), np.asarray(jbias))
-    np.testing.assert_array_equal(tcos.numpy(), np.asarray(jcos))
-    np.testing.assert_array_equal(tsin.numpy(), np.asarray(jsin))
+    np.testing.assert_array_equal(tcos.float().numpy(), np.asarray(jcos.astype(jnp.float32)))
+    np.testing.assert_array_equal(tsin.float().numpy(), np.asarray(jsin.astype(jnp.float32)))
     out = tattn.fused_temporal_layer(
-        _t(x), _t(gamma), _t(wqkv), _t(wout), tbias, tcos, tsin, HEADS, DH
+        _t(x).to(tdt), _t(gamma), _t(wqkv).to(tdt), _t(wout).to(tdt), tbias, tcos, tsin, heads, dh
     )
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    assert out.dtype == tdt
+    got, want = out.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    else:
+        assert np.all(np.abs(got - want) <= BF16_TOL["atol"] + BF16_TOL["rtol"] * np.abs(want))
 
 
 def test_fused_spatial_linear_layer_matches_pallas():

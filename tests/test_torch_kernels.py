@@ -34,16 +34,34 @@ def _close(out, ref, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+# (C, HW, focus, F, heads): the first three in both dtypes; then clusters of 2
+# blocks (heads 2) and of 8 with two heads per block (heads 16), F = 7, 33,
+# 64 (1, 3, 4 query strips per pixel), HW = 6 and 130, which no power-of-two
+# chunk of pixels divides, focus rows; C = 16, 32, 48 (rows of 2, 4, 6
+# 16-byte chunks: a narrower swizzle), 192 and 320 (24 and 40 chunks: the
+# LayerNorm's lanes per row a power of two below C / 8); F = 64 at C = 512 in
+# bf16 only (the fp32 kernel keeps [F, C] fp32 rows in shared memory and
+# cannot place it)
+_TEMPORAL_CASES = [(64, 256, False, 40, 8), (512, 16, False, 40, 8), (128, 64, True, 40, 8),
+                   (64, 6, False, 40, 2), (128, 6, True, 33, 16), (64, 16, False, 7, 8),
+                   (256, 16, True, 64, 8), (512, 6, False, 33, 8), (64, 130, False, 33, 8),
+                   (16, 6, False, 40, 8), (32, 16, True, 40, 8), (48, 6, False, 7, 2),
+                   (192, 16, False, 40, 8), (192, 6, True, 33, 16), (320, 16, False, 40, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c,hw,focus", [(64, 256, False), (512, 16, False), (128, 64, True)])
-def test_fused_temporal_layer_kernel(dev, dtype, c, hw, focus):
+@pytest.mark.parametrize("dtype,c,hw,focus,f,heads",
+                         [(d, *case) for case in _TEMPORAL_CASES for d in DTYPES]
+                         + [(torch.bfloat16, 512, 6, False, 64, 8)])
+def test_fused_temporal_layer_kernel(dev, dtype, c, hw, focus, f, heads):
+    """Kernel against the plain layer, and the same bits when run twice (no
+    atomics: the bf16 cluster sums its blocks' partials in rank order)."""
     g = torch.Generator(device=dev).manual_seed(0)
-    b, f, heads = 2, 40, 8
+    b, hd = 2, heads * 32
     x = torch.randn(b, f, hw, c, generator=g, device=dev).to(dtype)
     gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
-    wqkv = (torch.randn(c, 768, generator=g, device=dev) / c ** 0.5).to(dtype)
-    wout = (torch.randn(256, c, generator=g, device=dev) / 16).to(dtype)
+    wqkv = (torch.randn(c, 3 * hd, generator=g, device=dev) / c ** 0.5).to(dtype)
+    wout = (torch.randn(hd, c, generator=g, device=dev) / hd ** 0.5).to(dtype)
     mask = torch.tensor([True, False], device=dev) if focus else None
     bias = A.build_bias_flat(torch.randn(heads, f, f, generator=g, device=dev), b, f, mask)
     cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, dtype, dev)
@@ -52,6 +70,130 @@ def test_fused_temporal_layer_kernel(dev, dtype, c, hw, focus):
     out = A.fused_temporal_layer(*args)
     assert A.fused_temporal_layer.launches == before + 1
     _close(out, A.fused_temporal_layer_plain(*args), dtype)
+    assert torch.equal(out, A.fused_temporal_layer(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,k,focus", [(8, 2, False), (8, 4, True), (8, 8, False), (16, 8, True),
+                                           (16, 2, False), (2, 2, True), (3, 3, False)])
+def test_fused_temporal_layer_kernel_at_every_cluster_size(dev, monkeypatch, heads, k, focus):
+    """The bf16 kernel under a cluster size forced through the plan: one head
+    per block (K = heads) or several, K = 3 (uneven column slices of the
+    reduction); against the plain layer, and the same bits twice."""
+    import functools
+
+    monkeypatch.setattr(A, "temporal_layer_plan", functools.partial(A.temporal_layer_plan, cluster=k))
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, f, hw, c, hd = 2, 40, 24, 128, heads * 32
+    x = torch.randn(b, f, hw, c, generator=g, device=dev).bfloat16()
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    wqkv = (torch.randn(c, 3 * hd, generator=g, device=dev) / c ** 0.5).bfloat16()
+    wout = (torch.randn(hd, c, generator=g, device=dev) / hd ** 0.5).bfloat16()
+    mask = torch.tensor([True, False], device=dev) if focus else None
+    bias = A.build_bias_flat(torch.randn(heads, f, f, generator=g, device=dev), b, f, mask)
+    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, torch.bfloat16, dev)
+    args = (x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32)
+    out = A.fused_temporal_layer(*args)
+    _close(out, A.fused_temporal_layer_plain(*args), torch.bfloat16)
+    assert torch.equal(out, A.fused_temporal_layer(*args))
+
+
+@pytest.mark.cuda
+def test_temporal_layer_smem_mirrors_the_kernel(dev):
+    """`temporal_layer_smem` is the kernel's own layout, byte for byte."""
+    import ctypes
+
+    from cvpr23_lfdm_torch.ops import _build
+
+    fn = _build.load("fused_temporal_layer").fused_temporal_layer_bf16_smem
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+    for f in (1, 7, 16, 33, 40, 64):
+        for c in (16, 32, 48, 64, 128, 192, 320, 512):
+            for p in range(1, 8 // -(-f // 16) + 1):
+                for hpb in (1, 2):
+                    assert fn(f, c, p, hpb) == A.temporal_layer_smem(f, c, p, hpb), (f, c, p, hpb)
+
+
+# (B, F, HW, C, heads, SMs): the seven serving shapes on 132 SMs, F = 64, the
+# ablation shape, heads 2 / 3 / 16, HW that no power of two divides, a small
+# card, C = 32, 192, 320
+@pytest.mark.parametrize("b,f,hw,c,heads,sms", [
+    (1, 40, 1024, 64, 8, 132), (1, 40, 256, 128, 8, 132), (1, 40, 256, 64, 8, 132),
+    (1, 40, 64, 256, 8, 132), (1, 40, 64, 128, 8, 132), (1, 40, 16, 512, 8, 132),
+    (1, 40, 16, 256, 8, 132), (1, 64, 16, 512, 8, 132), (1, 64, 1024, 64, 8, 132),
+    (8, 40, 1024, 64, 8, 132), (2, 40, 6, 64, 2, 132), (2, 33, 6, 128, 16, 132),
+    (2, 7, 130, 64, 8, 132), (1, 40, 100, 64, 3, 132), (1, 17, 1000, 128, 8, 12),
+    (1, 40, 16, 32, 8, 132), (2, 33, 6, 192, 16, 132), (1, 40, 64, 320, 8, 132)])
+def test_temporal_layer_plan_covers_every_pixel_once(b, f, hw, c, heads, sms):
+    """The bf16 launch plan: cluster y of batch entry z owns pixels [y P,
+    min((y+1) P, HW)), none empty, every pixel once; K divides heads and is
+    at most 8; of the clusters (K >= 2) the smallest whose grid has a block
+    for every two SMs (else the largest that fits), unless K = 1 fits and
+    its waves times heads are at most the cluster's waves times (heads per
+    block + 1); one warp per 16-row query strip, at most 8; the ranks'
+    column slices of the reduction cover the C/4 float4 columns once; the
+    block fits the card's shared memory; P is cut only to keep two blocks
+    per SM."""
+    plan = A.temporal_layer_plan(b, f, hw, c, heads, sms)
+    p, k = plan["pixels"], plan["cluster"]
+    ks = [d for d in range(1, 9) if heads % d == 0]
+    assert k in ks and plan["heads_per_block"] * k == heads
+    fits = lambda kk: A.temporal_layer_smem(f, c, 1, heads // kk) <= A._MAX_SMEM
+    forced = {kk: A.temporal_layer_plan(b, f, hw, c, heads, sms, kk) for kk in ks if fits(kk)}
+    clustered = [kk for kk in forced if kk > 1]
+    small = [kk for kk in clustered if b * forced[kk]["grid"][1] * kk >= sms / 2]
+    best = small[0] if small else (clustered[-1] if clustered else None)
+    one_wins = 1 in forced and (best is None or forced[1]["waves"] * heads
+                                <= forced[best]["waves"] * (heads // best + 1))
+    assert k == (1 if one_wins else best)
+    assert plan["warps"] == p * -(-f // 16) <= 8
+    assert plan["grid"] == (k, -(-hw // p), b)
+    seen = []
+    for y in range(plan["grid"][1]):
+        x0, x1 = y * p, min((y + 1) * p, hw)
+        assert x1 > x0
+        seen.extend(range(x0, x1))
+    assert seen == list(range(hw))
+    cols = [ch for r in range(k) for ch in range(r * (c // 4) // k, (r + 1) * (c // 4) // k)]
+    assert cols == list(range(c // 4))
+    assert plan["smem"] == A.temporal_layer_smem(f, c, p, heads // k) <= A._MAX_SMEM
+    if p < min(8 // -(-f // 16), hw) and A.temporal_layer_smem(f, c, p + 1, heads // k) <= A._MAX_SMEM:
+        assert b * -(-hw // (p + 1)) * k < 2 * sms
+
+
+@pytest.mark.parametrize("c,hw,k", [(64, 1024, 1), (128, 256, 1), (64, 256, 2), (256, 64, 2),
+                                    (128, 64, 2), (512, 16, 8), (256, 16, 8)])
+def test_temporal_layer_plan_at_the_serving_shapes(c, hw, k):
+    """At B=1 on the H100's 132 SMs the plan takes, at each serving shape,
+    the cluster size that the cluster scan read fastest (or within 3% of
+    it, (128, 64)): K = 1 at the two largest levels, 8 at 16 pixels."""
+    assert A.temporal_layer_plan(1, 40, hw, c, 8, 132)["cluster"] == k
+
+
+def test_bench_temporal_layer_reads_the_serving_shapes():
+    """`scripts/bench_temporal_layer.py`, `bench_attn_ablate --serving` and
+    `chip_smoke.py` read the serving shapes from one table
+    (`_common.TEMPORAL_SHAPES`): ten calls per eval, the 100 launches per
+    video that `chip_smoke.py` counts; the script's layer arguments are ones
+    the layer takes; its reading needs the card."""
+    import chip_smoke
+    from cvpr23_lfdm_torch.scripts import _common, bench_attn_ablate
+    from cvpr23_lfdm_torch.scripts import bench_temporal_layer as bench
+
+    assert sum(_common.TEMPORAL_SHAPES.values()) * bench.DDIM_STEPS == 100
+    assert bench.TEMPORAL_SHAPES is _common.TEMPORAL_SHAPES is bench_attn_ablate.TEMPORAL_SHAPES
+    assert (bench.F, bench.HEADS, bench.D) == (chip_smoke.F_FRAMES, chip_smoke.HEADS, chip_smoke.DH)
+    args = bench.make_args(64, 4, "cpu")
+    assert args[0].dtype == torch.bfloat16 and tuple(args[0].shape) == (1, bench.F, 4, 64)
+    assert A.fused_temporal_layer(*args).shape == args[0].shape
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            bench_attn_ablate.run_serving()
+
+
+def test_temporal_layer_plan_raises_when_no_block_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        A.temporal_layer_plan(1, 64, 16, 1024, 16, 132)
 
 
 @pytest.mark.cuda
@@ -401,9 +543,10 @@ def test_ablated_temporal_layer_full_is_the_serving_kernel(dev):
         want = A.fused_temporal_layer(*args)
         before = (A.fused_temporal_layer.launches, A.fused_temporal_layer_ablated.launches)
         assert torch.equal(A.fused_temporal_layer_ablated("full", *args), want)
-        out = A.fused_temporal_layer_ablated("scores", *args)  # builds, launches; values mean nothing
-    assert out.shape == want.shape
+        for stage in ("scores", "reduce"):  # builds, launches; values mean nothing
+            out = A.fused_temporal_layer_ablated(stage, *args)
+            assert out.shape == want.shape
     assert (A.fused_temporal_layer.launches, A.fused_temporal_layer_ablated.launches) == (
-        before[0], before[1] + 2)
+        before[0], before[1] + 3)
     with pytest.raises(ValueError):
         A.fused_temporal_layer_ablated("kvbuild", *args)

@@ -188,7 +188,7 @@ def test_port_imports_no_jax():
     walked = {os.path.relpath(p, ROOT) for p in files}
     for new in ("ops/norm.py", "utils/profiling.py", "scripts/_common.py", "scripts/bench_unet.py",
                 "scripts/bench_warp.py", "scripts/bench_attn_ablate.py",
-                "scripts/check_kernel_parity.py"):
+                "scripts/check_kernel_parity.py", "scripts/bench_temporal_layer.py"):
         assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:
