@@ -8,8 +8,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               of the seven kernel sources in `cvpr23_lfdm_torch/csrc/` and
               of the eight ablation builds of the temporal layer (one `nvcc`
               per library, all started together); the `-Xptxas -v` lines,
-              and per instantiation of the bf16 temporal-layer kernel its
-              registers and spills (gated: no spill).
+              and per bf16 kernel of the two fused layers (each
+              instantiation of the temporal layer's; the linear layer's
+              context and output kernels) its registers and spills (gated:
+              no spill).
 2. kernel   — each kernel against its plain PyTorch version at every shape
               the serving path (fused layers, warp) or the training step
               (head-packed attention, forward and backward, B=5) gives it,
@@ -26,7 +28,11 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               whichever is larger). The temporal layer also with its
               device time alone per call (torch.profiler, one kernel per
               call) and, in both dtypes and the focus case, run twice for
-              bit-identity. Likewise the packed attention at the
+              bit-identity; the linear layer likewise (two kernels per
+              call), and at HW = 48 and 100 (short last tiles, off the
+              path), each also on inputs whose attention branch is O(1)
+              and residual small, so that the gate holds the branch
+              (`branch_max_abs_err`, `branch_rms`). Likewise the packed attention at the
               four B=1 serving shapes and a focus case (library: SDPA on
               pre-permuted q, k, v; device times alone of both; run twice
               for bit-identity), the fused GroupNorm+FiLM+SiLU at every
@@ -49,7 +55,7 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               (`tests/golden/torch_port_mug_ddim10.npz`, 8 frames).
 
 5. profile  — one serving video under torch.profiler: device time by
-              kernel (and the temporal layer's sum over its 100 calls) and
+              kernel (and each fused layer's sum over its 100 or 80 calls) and
               its share of the serving latency; the full table
               goes to `chip_smoke_out/profile_serving.json`.
 6. train    — `DMTrainer.train_step` at the full width of the MUG config
@@ -102,7 +108,7 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
-`per`; for rows 1, 4-6, 8 and 9 also `device_ms` / `library_device_ms`, the
+`per`; for rows 1, 2, 4-6, 8 and 9 also `device_ms` / `library_device_ms`, the
 same calls' device time alone from torch.profiler), the `nvidia-smi`
 name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without that
@@ -126,10 +132,9 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 F_FRAMES, HEADS, DH = 40, 8, 32
 DDIM_STEPS = 10
-# (C, HW) of the serving path's calls and their count per UNet eval (the
-# temporal layer's: `cvpr23_lfdm_torch/scripts/_common.py::TEMPORAL_SHAPES`)
-LINEAR_SHAPES = {(64, 1024): 2, (128, 256): 1, (256, 64): 1, (512, 16): 1,
-                 (256, 16): 1, (128, 64): 1, (64, 256): 1}
+# (C, HW) of the fused layers' serving calls and their count per UNet eval:
+# `cvpr23_lfdm_torch/scripts/_common.py::TEMPORAL_SHAPES` and `LINEAR_SHAPES`
+# (the package is imported once the checkout is known: see main)
 # decode warps per video: (H, C) of the shared source, F = 40 grids
 WARP_SHAPES = {(32, 256): 1, (64, 128): 1, (128, 67): 1}
 TOL = {  # elementwise |kernel - plain| <= atol + rtol * |plain|
@@ -273,7 +278,7 @@ def check_kernels(failures: list) -> dict:
 
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import warp as W
-    from cvpr23_lfdm_torch.scripts._common import TEMPORAL_SHAPES
+    from cvpr23_lfdm_torch.scripts._common import LINEAR_SHAPES, TEMPORAL_SHAPES
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -328,24 +333,41 @@ def check_kernels(failures: list) -> dict:
         record("fused_temporal_layer", [2, F_FRAMES, hw, c, "focus"], dname, res, 0,
                bit_identical_twice=same)
 
-        for (c, n), n_eval in LINEAR_SHAPES.items():
-            x = randn(1, F_FRAMES, n, c).to(dtype)
+        # the serving shapes, then HW = 48 and 100 (off the path: short last tiles)
+        for (c, n), n_eval in [*LINEAR_SHAPES.items(), ((64, 48), 0), ((128, 100), 0)]:
+            x = randn(1, F_FRAMES, n, c)
             gamma = 1 + 0.1 * randn(c)
             wqkv = (randn(c, 3 * hd) / c ** 0.5).to(dtype)
-            wout = (randn(hd, c) / hd ** 0.5).to(dtype)
+            wout = randn(hd, c) / hd ** 0.5
             bout = 0.1 * randn(c)
-            args = (x, gamma, wqkv, wout, bout, HEADS, DH)
-            res = compare(A.fused_spatial_linear_layer(*args),
-                          A.fused_spatial_linear_layer_plain(*args), TOL[dname])
+            args = (x.to(dtype), gamma, wqkv, wout.to(dtype), bout, HEADS, DH)
+            call = lambda: A.fused_spatial_linear_layer(*args)
+            out = call()
+            res = compare(out, A.fused_spatial_linear_layer_plain(*args), TOL[dname])
+            same = bool(torch.equal(out, call()))  # no atomics: the same bits when run again
+            # With these inputs the attention term W_out·o is ~0.2/sqrt(HW), under one
+            # bf16 ulp of the residual: a fault in the context would pass. Again with
+            # that term O(1) and the residual small (x/16: the LayerNorm does not see
+            # the scale; W_out * 2 sqrt(HW)), so that the gate holds the branch itself,
+            # whose rms must be ten times the gate's atol or more
+            bargs = ((x / 16).to(dtype), gamma, wqkv, (2 * n ** 0.5 * wout).to(dtype), bout, HEADS, DH)
+            bref = A.fused_spatial_linear_layer_plain(*bargs)
+            branch = compare(A.fused_spatial_linear_layer(*bargs), bref, TOL[dname])
+            branch_rms = float((bref.float() - bargs[0].float()).pow(2).mean().sqrt())
+            res["ok"] = (res["ok"] and same and branch["ok"] and branch["finite"]
+                         and branch_rms >= 10 * TOL[dname]["atol"])
             times = None
-            if timed:
-                times = {"kernel_ms": median_ms(lambda: A.fused_spatial_linear_layer(*args)),
+            if timed and n_eval:
+                times = {"kernel_ms": median_ms(call),
                          "plain_ms": median_ms(lambda: A.fused_spatial_linear_layer_plain(*args), reps=5),
-                         "library_ms": None}
+                         "library_ms": None,
+                         "kernel_device_ms": device_ms(call, launches=2), "library_device_ms": None}
             nbytes = (2 * x.numel() + wqkv.numel() + wout.numel()) * esz + 2 * c * 4
             flops = 2 * F_FRAMES * n * c * 4 * hd + 4 * F_FRAMES * HEADS * n * DH * DH
             record("fused_spatial_linear_layer", [1, F_FRAMES, n, c], dname, res,
-                   n_eval * DDIM_STEPS, times, nbytes, flops)
+                   n_eval * DDIM_STEPS, times, nbytes, flops, bit_identical_twice=same,
+                   branch_max_abs_err=branch["max_abs_err"], branch_rms=branch_rms,
+                   **({"device_launches_per_call": 2} if times else {}))
 
         for (h, c), per_video in WARP_SHAPES.items():
             src = randn(1, h, h, c).to(dtype)
@@ -535,6 +557,14 @@ def run_parity(failures: list) -> None:
         failures.append("parity vs JAX golden")
 
 
+def is_linear_layer(kernel_name: str) -> bool:
+    """A device kernel of `csrc/fused_spatial_linear_layer.cu` (bf16 and fp32,
+    and the names the file's kernels had before the bf16 ones were written
+    for tensor cores)."""
+    return any(k in kernel_name for k in ("linear_context_mma_kernel", "linear_output_mma_kernel",
+                                          "context_kernel<", "output_kernel<"))
+
+
 def run_profile(latency_s: float) -> None:
     """One serving video under torch.profiler: device time by kernel, and
     its sum over the unprofiled median latency of the serving phase."""
@@ -558,6 +588,8 @@ def run_profile(latency_s: float) -> None:
               "device_busy_share": busy / (latency_s * 1e3),
               "fused_temporal_layer_device_ms": sum(
                   r["device_ms"] for r in device if "fused_temporal_layer" in r["name"]),
+              "fused_spatial_linear_layer_device_ms": sum(
+                  r["device_ms"] for r in device if is_linear_layer(r["name"])),
               "top": device[:25]}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "profile_serving.json"), "w") as f:
@@ -1239,16 +1271,23 @@ def main() -> int:
              for n, log in built["logs"].items()}
     row1_bf16 = {k: v for k, v in ptxas_report(built["logs"]["fused_temporal_layer"]).items()
                  if "fused_temporal_layer_mma_kernel" in k}
+    row2_bf16 = {k: v for k, v in ptxas_report(built["logs"]["fused_spatial_linear_layer"]).items()
+                 if "linear_context_mma_kernel" in k or "linear_output_mma_kernel" in k}
     failures: list[str] = []
     if not row1_bf16 or any(v["spill_stores"] or v["spill_loads"] for v in row1_bf16.values()):
         failures.append("fused_temporal_layer bf16: ptxas reports a spill (or no kernel)")
+    if len(row2_bf16) != 2 or any(v["spill_stores"] or v["spill_loads"] for v in row2_bf16.values()):
+        failures.append("fused_spatial_linear_layer bf16: ptxas reports a spill (or a kernel is missing)")
     emit({"phase": "env", "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": built["seconds"], "ptxas": ptxas,
           "ptxas_fused_temporal_layer_bf16": {
               f"fused_temporal_layer_mma_kernel<NT={k.split('kernelILi')[1].split('E')[0]}>": v
-              for k, v in row1_bf16.items()}})
+              for k, v in row1_bf16.items()},
+          "ptxas_fused_spatial_linear_layer_bf16": {
+              ("linear_context_mma_kernel" if "context" in k else "linear_output_mma_kernel"): v
+              for k, v in row2_bf16.items()}})
 
     totals = check_kernels(failures)
     totals.update(check_headpacked(failures))

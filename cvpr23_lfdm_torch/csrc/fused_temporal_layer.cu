@@ -75,10 +75,7 @@
 
 #include <cooperative_groups.h>
 
-#include <array>
-#include <mutex>
-#include <set>
-
+#include "cluster_launch.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -219,23 +216,6 @@ constexpr int kMaxSmem = 232448;  // dynamic shared memory of one block on the H
 constexpr int kMaxWarps = 8;      // query strips (warps) of a block
 constexpr int kMaxCluster = 8;    // blocks of a cluster (portable size)
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Byte offset of 16-byte chunk c of row r in a bf16 tile of `rb`-byte rows:
-// the chunk index is XORed with r & m, m + 1 the largest power of two up to 8
-// that divides the rb / 16 chunks of a row (swz_mask), so the XOR stays in
-// the row. With C % 64 == 0 (m = 7) the eight rows one ldmatrix matrix reads
-// fall on eight different groups of banks; narrower rows share some banks.
-__device__ __forceinline__ int swzw(int r, int c, int rb, int m) {
-  return r * rb + ((c ^ (r & m)) << 4);
-}
-
-__device__ __forceinline__ int swz_mask(int chunks) { return min(8, chunks & -chunks) - 1; }
-
 // A block's shared memory, byte offsets (mirrored by ops/attention.py::
 // temporal_layer_smem): the x tile [P*FP][C] bf16, the head's W_qkv columns
 // as three [C][32] bf16 tiles, the fp32 partial [P*F][C+8] (with one head per
@@ -267,25 +247,6 @@ __host__ __device__ inline Layout layout(int F, int C, int P, int hpb) {
   return L;
 }
 
-// The shared-memory address `addr` of this block as seen in block `rank` of the cluster
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ float2 bf2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
 // NT = ceil(F / 8) key tiles of 8, KT = ceil(F / 16) query strips of 16 per
 // pixel. Grid (K, ceil(HW / P), B), clusters of (K, 1, 1), P * KT warps.
 template <int NT>
@@ -300,7 +261,7 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int hpb = heads / K, hd = heads * D, RB = 2 * C, LDP = C + 8, SM = swz_mask(C / 8);
-  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, q2 = 2 * (lane & 3);
   const int pix0 = blockIdx.y * P, np = min(P, HW - pix0);
   const long long b = blockIdx.z;
@@ -390,49 +351,7 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
     if (hh == 0) {
       __syncthreads();
 #ifndef LFDM_ABLATE_LAYERNORM
-      // LayerNorm in place: lpr lanes per row (a power of two, for the XOR sums), each
-      // on 16-byte chunks of 8 channels
-      int lpr = 32;
-      while (lpr > C / 8) lpr >>= 1;
-      const int sub = lane / lpr, sl = lane % lpr;
-      for (int r0 = warp * (32 / lpr); r0 < np * F; r0 += warps * (32 / lpr)) {
-        const int r = r0 + sub;
-        const bool ok = r < np * F;
-        const int row = ok ? (r / F) * FP + r % F : 0;
-        float sum = 0.f, ss = 0.f;
-        for (int c = sl; c < C / 8; c += lpr) {
-          if (!ok) break;
-          const uint4 v = *reinterpret_cast<const uint4*>(sx + swzw(row, c, RB, SM));
-          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f2 = bf2(w[e]);
-            sum += f2.x + f2.y;
-            ss += f2.x * f2.x + f2.y * f2.y;
-          }
-        }
-        for (int o = lpr / 2; o > 0; o >>= 1) {
-          sum += __shfl_xor_sync(kFull, sum, o);
-          ss += __shfl_xor_sync(kFull, ss, o);
-        }
-        const float mean = sum / C;
-        const float rstd = rsqrtf(ss / C - mean * mean + eps);
-        for (int c = sl; c < C / 8; c += lpr) {
-          if (!ok) break;
-          uint4* at = reinterpret_cast<uint4*>(sx + swzw(row, c, RB, SM));
-          const uint4 v = *at;
-          uint32_t w[4] = {v.x, v.y, v.z, v.w};
-          const float4 ga = *reinterpret_cast<const float4*>(sgamma + 8 * c);
-          const float4 gb = *reinterpret_cast<const float4*>(sgamma + 8 * c + 4);
-          const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f2 = bf2(w[e]);
-            w[e] = pack_bf16((f2.x - mean) * rstd * gm[2 * e], (f2.y - mean) * rstd * gm[2 * e + 1]);
-          }
-          *at = make_uint4(w[0], w[1], w[2], w[3]);
-        }
-      }
+      layer_norm_tile(sx, sgamma, np * F, C, SM, eps, [=](int r) { return (r / F) * FP + r % F; });
 #endif
       cp_async_wait<0>();
     }
@@ -628,54 +547,15 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
 #endif
 }
 
-// Configurations (NT, K, threads, shared memory) that the card has placed:
-// the occupancy query runs once for each, not on every call.
-std::mutex placed_mu;
-std::set<std::array<int, 4>> placed_set;
-
-bool placed(int nt, int k, int threads, int smem) {
-  std::lock_guard<std::mutex> lock(placed_mu);
-  return placed_set.count({nt, k, threads, smem}) > 0;
-}
-
-void remember_placed(int nt, int k, int threads, int smem) {
-  std::lock_guard<std::mutex> lock(placed_mu);
-  placed_set.insert({nt, k, threads, smem});
-}
-
 template <int NT>
 cudaError_t launch_mma(const bf16* x, const float* gamma, const bf16* wqkv, const bf16* wout,
                        const float* bias, const bf16* cos_t, const bf16* sin_t, bf16* out, int B,
                        int F, int HW, int C, int heads, int P, int K, float eps, cudaStream_t st) {
   const Layout L = layout(F, C, P, heads / K);
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;  // the wrapper sizes P to fit
-  auto kernel = fused_temporal_layer_mma_kernel<NT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K, (HW + P - 1) / P, B);
-  cfg.blockDim = dim3(32 * P * ((NT + 1) / 2));
-  cfg.dynamicSmemBytes = L.total;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!placed(NT, K, (int)cfg.blockDim.x, L.total)) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;  // the cluster cannot be placed
-    remember_placed(NT, K, (int)cfg.blockDim.x, L.total);
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, x, gamma, wqkv, wout, bias, cos_t, sin_t, out, F, HW, C,
-                           heads, P, K, eps);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cluster(fused_temporal_layer_mma_kernel<NT>, dim3(K, (HW + P - 1) / P, B),
+                        dim3(K, 1, 1), 32 * P * ((NT + 1) / 2), L.total, st, x, gamma, wqkv, wout,
+                        bias, cos_t, sin_t, out, F, HW, C, heads, P, K, eps);
 }
 
 int launch_bf16(const void* x, const void* gamma, const void* wqkv, const void* wout,

@@ -1,8 +1,10 @@
 // Warp-level tensor-core helpers for the port's kernels (sm_80 and later
 // instructions, built here for sm_90a): bf16 mma.sync with fp32 sums,
-// ldmatrix fragment loads from shared memory, 16-byte cp.async copies, and
-// the swizzled layout of a [rows][32] bf16 tile that keeps ldmatrix free of
-// bank conflicts.
+// ldmatrix fragment loads from shared memory, 16-byte cp.async copies,
+// loads from a cluster's distributed shared memory, the swizzled layouts of
+// bf16 tiles that keep ldmatrix free of bank conflicts ([rows][32]: swz;
+// wider rows: swzw), and the in-place LayerNorm of such a tile that the two
+// fused layers share.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * grp + quad):
 //   A (16x16, row-major): a[0] = (row grp,   k 2q..2q+1), a[1] = (row grp+8, k 2q..),
@@ -85,11 +87,119 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// waits until at most N committed groups are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared-memory address `addr` of this block as seen in block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// loads from the distributed shared memory of a cluster (addresses from map_rank)
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_cluster_u4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// the two bf16 halves of an operand register, low half first
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
 // Byte offset of 16-byte chunk c (channels 8c..8c+7) of row r in a [rows][32]
 // bf16 tile of 64-byte rows. The chunk index is XORed with (r / 2) % 4, so
 // the eight rows one ldmatrix matrix reads fall on eight different groups of
 // four banks.
 __device__ __forceinline__ int swz(int r, int c) { return r * 64 + ((c ^ ((r >> 1) & 3)) << 4); }
+
+// Byte offset of 16-byte chunk c of row r in a bf16 tile of `rb`-byte rows:
+// the chunk index is XORed with r & m, m + 1 the largest power of two up to 8
+// that divides the rb / 16 chunks of a row (swz_mask), so the XOR stays in
+// the row. With rows of a multiple of 128 bytes (m = 7) the eight rows one
+// ldmatrix matrix reads fall on eight different groups of banks; narrower
+// rows share some banks.
+__device__ __forceinline__ int swzw(int r, int c, int rb, int m) {
+  return r * rb + ((c ^ (r & m)) << 4);
+}
+
+__device__ __forceinline__ int swz_mask(int chunks) { return min(8, chunks & -chunks) - 1; }
+
+// LayerNorm in place of `rows` rows of a bf16 tile swizzled by swzw (C
+// channels, 2C-byte rows, mask m); row r of the norm is tile row row_of(r).
+// lpr lanes per row (a power of two, for the XOR sums), each on 16-byte
+// chunks of 8 channels; fp32 statistics with var = E[x^2] - mean^2, gamma
+// (fp32, shared memory), the result rounded to bf16. Every warp of the block
+// takes rows; no barrier.
+template <typename RowOf>
+__device__ __forceinline__ void layer_norm_tile(char* sx, const float* sgamma, int rows, int C,
+                                                int m, float eps, RowOf row_of) {
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int RB = 2 * C;
+  int lpr = 32;
+  while (lpr > C / 8) lpr >>= 1;
+  const int sub = lane / lpr, sl = lane % lpr;
+  for (int r0 = warp * (32 / lpr); r0 < rows; r0 += warps * (32 / lpr)) {
+    const int r = r0 + sub;
+    const bool ok = r < rows;
+    const int row = ok ? row_of(r) : 0;
+    float sum = 0.f, ss = 0.f;
+    for (int c = sl; c < C / 8; c += lpr) {
+      if (!ok) break;
+      const uint4 v = *reinterpret_cast<const uint4*>(sx + swzw(row, c, RB, m));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f2 = bf2(w[e]);
+        sum += f2.x + f2.y;
+        ss += f2.x * f2.x + f2.y * f2.y;
+      }
+    }
+    for (int o = lpr / 2; o > 0; o >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mean = sum / C;
+    const float rstd = rsqrtf(ss / C - mean * mean + eps);
+    for (int c = sl; c < C / 8; c += lpr) {
+      if (!ok) break;
+      uint4* at = reinterpret_cast<uint4*>(sx + swzw(row, c, RB, m));
+      const uint4 v = *at;
+      uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      const float4 ga = *reinterpret_cast<const float4*>(sgamma + 8 * c);
+      const float4 gb = *reinterpret_cast<const float4*>(sgamma + 8 * c + 4);
+      const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f2 = bf2(w[e]);
+        w[e] = pack_bf16((f2.x - mean) * rstd * gm[2 * e], (f2.y - mean) * rstd * gm[2 * e + 1]);
+      }
+      *at = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
 
 // max and sum over the four lanes of a quad (the lanes that hold one C-fragment row)
 __device__ __forceinline__ float quad_max(float v) {

@@ -58,14 +58,26 @@ the fp32 gates. The bias comes in as `bias_flat`, so focus rows are
 `NEG_INF` off the diagonal as on the TPU.
 
 `fused_spatial_linear_layer` on the H100. The k-softmax reduces over all
-HW pixels of a frame, so the layer is a chain of two launches. The first
-has one block per (batch, frame, head): it streams the frame's pixels,
-projects that head's k and v, and keeps an online softmax of k over the
-pixels with the 32×32 context `kᵀv` in shared memory (the context is per
-head, not the TPU's masked 256×256 product). The second has one block per
-(batch, frame, 32 pixels): LN, the q projection and per-head q-softmax,
-`q·context`, the biased out-projection and the residual. It is bound by
-operations (the projections), like the temporal layer.
+HW pixels of a frame, so the layer is a chain of two launches, the context
+and then the output; the per-head 32×32 context `kᵀv` (not the TPU's masked
+256×256 product) is the only intermediate in device memory. It is bound by
+operations (the projections), like the temporal layer, and takes any HW.
+In bf16 (serving) both launches run on tensor cores in thread-block
+clusters (:func:`linear_layer_plan`, C a multiple of 16). The context
+launch: a block owns a split of a frame's row tiles and a group of heads,
+one warp per head; it LayerNorms each tile once for all its heads, projects
+k|v on `mma.sync`, keeps an online softmax of k over the rows in the C
+fragments and adds `pᵀv` on `mma.sync` (p and v rounded to bf16); the
+splits of a frame, one cluster, merge their (max, sum, context) partials
+in rank order through distributed shared memory. The output launch: the K
+blocks of a cluster share a tile of rows, each with `heads // K` heads for
+the q projection, q-softmax (the plain version's rounding points) and
+`q·context`, all on `mma.sync`; the cluster gathers the heads' outputs
+through distributed shared memory and each block runs the out-projection
+of its slice of the columns, `+ b`, and the residual. No atomics, the same
+bits every run. fp32 keeps the CUDA-core kernels (one block per frame and
+head for the context, one per 32 pixels for the output, FMA products over
+shared memory).
 
 `headpacked_temporal_attention` on the H100 (`csrc/headpacked_attention.cu`,
 replacing `_headpacked_kernel` and `_headpacked_bwd_kernel` of
@@ -126,6 +138,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -469,33 +482,119 @@ def fused_spatial_linear_layer(x, gamma, wqkv, wout, bout,
       x: `[B, F, HW, C]`; gamma: `[C]` fp32; wqkv: `[C, 3*heads*d]`;
       wout: `[heads*d, C]`; bout: `[C]` fp32 (to_out bias).
 
-    Returns `[B, F, HW, C]`. The kernel needs d = 32.
+    Returns `[B, F, HW, C]`. The kernel needs d = 32, and in bf16 C % 16 ==
+    0 and 16-byte aligned tensors; two launches per call.
     """
     if x.device.type == "cpu":
         return fused_spatial_linear_layer_plain(
             x, gamma, wqkv, wout, bout, heads, dim_head, eps
         )
+    name = "fused_spatial_linear_layer"
     b, f, n, c = x.shape
     hd = heads * dim_head
-    _check_layer_args("fused_spatial_linear_layer", x, gamma, wqkv, wout, hd, (), (bout,))
-    _build.require_no_grad("fused_spatial_linear_layer", x, gamma, wqkv, wout, bout)
+    _check_layer_args(name, x, gamma, wqkv, wout, hd, (), (bout,))
+    _build.require_no_grad(name, x, gamma, wqkv, wout, bout)
     if dim_head != 32 or tuple(bout.shape) != (c,):
-        raise ValueError("fused_spatial_linear_layer: needs d=32 and bout [C]")
+        raise ValueError(f"{name}: needs d=32 and bout [C]")
     # per-head normalized contexts, the only intermediate in device memory
-    ctx = torch.empty((b, f, heads, dim_head, dim_head), dtype=torch.float32, device=x.device)
+    ctx = torch.empty((b, f, heads, dim_head, dim_head), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    lib = _build.load("fused_spatial_linear_layer")
-    name = "launch_fused_spatial_linear_layer_" + _suffix(x.dtype)
-    fn = getattr(lib, name)
+    lib = _build.load(name)
+    ints = (b, f, n, c, heads)
+    if x.dtype == torch.bfloat16:
+        if c % 16:
+            raise ValueError(f"{name}: the bf16 kernel needs C % 16 == 0 (C={c})")
+        _check_aligned(name, x, gamma, wqkv, wout, bout, ctx, out)
+        plan = linear_layer_plan(b, f, n, c, heads, _sm_count(x.device.index), linear_layer_smem())
+        cp, op = plan["context"], plan["output"]
+        ints += (cp["rows"], cp["head_groups"], cp["splits"], op["rows"], op["cluster"])
+    fname = "launch_fused_spatial_linear_layer_" + _suffix(x.dtype)
+    fn = getattr(lib, fname)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * len(ints) + [ctypes.c_float, ctypes.c_void_p]
     code = fn(
         *(_build.ptr(t) for t in (x, gamma, wqkv, wout, bout, ctx, out)),
-        b, f, n, c, heads, eps, _build.stream(x.device),
+        *ints, eps, _build.stream(x.device),
     )
-    _build.check(lib, name, code)
+    _build.check(lib, fname, code)
     fused_spatial_linear_layer.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def linear_layer_smem():
+    """The bf16 linear-layer kernels' shared memory per block, as the library
+    computes it (`fused_spatial_linear_layer_bf16_smem` in
+    `csrc/fused_spatial_linear_layer.cu`, the one place of the layout):
+    `smem(kernel, c, rows, heads, groups)` bytes, kernel 0 the context launch
+    (`groups` head groups), 1 the output launch (clusters of `groups`).
+    Builds and loads the library (the card's toolchain)."""
+    fn = _build.load("fused_spatial_linear_layer").fused_spatial_linear_layer_bf16_smem
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5
+    return lambda kernel, c, rows, heads, groups: fn(kernel, c, rows, heads, groups)
+
+
+@functools.lru_cache(maxsize=256)
+def linear_layer_plan(b: int, f: int, hw: int, c: int, heads: int, sms: int, smem,
+                      cluster: int | None = None, rows: int | None = None) -> dict:
+    """Launch plan of the bf16 linear-attention layer on a card of `sms` SMs.
+
+    `smem(kernel, c, rows, heads, groups)` is a block's shared memory
+    (:func:`linear_layer_smem` on the card). Both launches split the heads
+    into G groups, G a divisor of `heads` up to 8 with at most 8 heads per
+    group (a context block runs one warp per head), and cut each frame into
+    tiles of R rows (pixels), R a multiple of 16 up to 128. The context
+    launch runs a block per (head group, split, frame), the KS = min(8,
+    tiles) splits of a frame in one cluster (a split takes every KS-th
+    tile); the output launch a cluster of G blocks per (tile, frame). Every
+    block has 8 warps (a context block's first `heads // G` run one head
+    each; all share the copies, LayerNorm and merge). Each launch takes the
+    smallest G whose block fits (a block stages the weights of its heads
+    once, and more blocks per cluster recompute the LN and exchange more),
+    and the largest R that fits, cut while its grid has fewer blocks than
+    half the SMs; R is the least for its number of tiles, so the tiles are
+    even (`bench_linear_layer --scan`). `cluster` names G for both, `rows`
+    names R (the scan). Raises when nothing fits. Cached: do not change
+    the returned dict."""
+    name = "fused_spatial_linear_layer"
+    bf = b * f
+    strips = -(-hw // 16)
+    groups = [g for g in range(1, 9) if heads % g == 0 and heads // g <= 8]
+    if cluster is not None:
+        if cluster not in groups:
+            raise ValueError(f"{name}: cluster {cluster} for {heads} heads")
+        groups = [cluster]
+    if rows is not None and (rows < 16 or rows % 16 or rows > 128):
+        raise ValueError(f"{name}: rows {rows} (a multiple of 16 up to 128)")
+
+    def even(ns):  # the fewest strips per tile that give the tiles of ns strips
+        return 16 * -(-strips // -(-strips // ns))
+
+    def choose(kernel, make):
+        for g in groups:
+            ns = rows // 16 if rows is not None else min(8, strips)
+            while rows is None and ns > 1 and smem(kernel, c, 16 * ns, heads, g) > _MAX_SMEM:
+                ns -= 1
+            if smem(kernel, c, 16 * ns, heads, g) > _MAX_SMEM:
+                continue
+            plan = make(g, rows or even(ns))
+            while rows is None and ns > 1 and math.prod(plan["grid"]) < sms / 2:
+                ns -= 1
+                plan = make(g, even(ns))
+            return plan
+        need = smem(kernel, c, rows or 16, heads, groups[-1])
+        raise ValueError(f"{name}: a block needs {need} bytes of shared memory "
+                         f"(C={c}, {heads // groups[-1]} heads per block) > {_MAX_SMEM}")
+
+    def context(g, r):
+        ks = min(8, -(-hw // r))
+        size = smem(0, c, r, heads, g)
+        return {"rows": r, "head_groups": g, "splits": ks, "smem": size, "grid": (g, ks, bf)}
+
+    def output(g, r):
+        return {"rows": r, "cluster": g, "smem": smem(1, c, r, heads, g), "grid": (g, -(-hw // r), bf)}
+
+    return {"context": choose(0, context), "output": choose(1, output)}
 
 
 # ------------------------------------------------ head-packed attention

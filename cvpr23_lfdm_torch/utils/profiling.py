@@ -68,13 +68,15 @@ def profile_rows(prof) -> list:
     return rows
 
 
-def device_ms(fn, reps: int = 10, launches: int | None = None) -> float | None:
+def device_ms(fn, reps: int = 10, launches: int | None = None, by: tuple = ()):
     """Device time per call of `fn`: the kernels and copies it puts on the
     card, summed by torch.profiler over `reps` calls after one warm-up, over
     `reps`. The host's work around the launches is not in it. With
     `launches` (device activities per call), a profile that recorded another
     number of them is taken once more, then given up (None): late in a long
-    process the profiler has recorded half of a run's kernels, or none."""
+    process the profiler has recorded half of a run's kernels, or none.
+    With `by` (parts of kernel names), returns `{"total": ms, name: ms, ...}`,
+    each name's share of the same profile."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -86,5 +88,9 @@ def device_ms(fn, reps: int = 10, launches: int | None = None) -> float | None:
             torch.cuda.synchronize()
         rows = [r for r in profile_rows(prof) if r["on_device"]]
         if launches is None or sum(r["count"] for r in rows) == launches * reps:
-            return sum(r["device_ms"] for r in rows) / reps
+            total = sum(r["device_ms"] for r in rows) / reps
+            if not by:
+                return total
+            return {"total": total, **{k: sum(r["device_ms"] for r in rows if k in r["name"]) / reps
+                                       for k in by}}
     return None

@@ -89,9 +89,13 @@ def test_fused_temporal_layer_matches_pallas(b, hw, f, focus, heads, dh, dim, dt
         assert np.all(np.abs(got - want) <= BF16_TOL["atol"] + BF16_TOL["rtol"] * np.abs(want))
 
 
-def test_fused_spatial_linear_layer_matches_pallas():
+@pytest.mark.parametrize("hw", [32, 48])
+def test_fused_spatial_linear_layer_matches_pallas(hw):
+    """The port's layer (its plain version on the CPU) against the JAX
+    interpret kernel; hw = 48 is no multiple of the 32-pixel tile that the
+    kernel on the card once required."""
     rng = np.random.default_rng(4)
-    b, f, hw = 2, 8, 32
+    b, f = 2, 8
     x, gamma, wqkv, wout = _layer_inputs(rng, b, f, hw, DIM, HEADS, DH)
     bout = (0.1 * rng.standard_normal(DIM)).astype(np.float32)
     ref = jattn.fused_spatial_linear_layer(

@@ -175,20 +175,57 @@ def test_bench_temporal_layer_reads_the_serving_shapes():
     `chip_smoke.py` read the serving shapes from one table
     (`_common.TEMPORAL_SHAPES`): ten calls per eval, the 100 launches per
     video that `chip_smoke.py` counts; the script's layer arguments are ones
-    the layer takes; its reading needs the card."""
+    the layer takes; it reads through the one layer bench
+    (`_common.run_layer`), one launch per call; its reading needs the
+    card."""
     import chip_smoke
     from cvpr23_lfdm_torch.scripts import _common, bench_attn_ablate
     from cvpr23_lfdm_torch.scripts import bench_temporal_layer as bench
 
-    assert sum(_common.TEMPORAL_SHAPES.values()) * bench.DDIM_STEPS == 100
-    assert bench.TEMPORAL_SHAPES is _common.TEMPORAL_SHAPES is bench_attn_ablate.TEMPORAL_SHAPES
-    assert (bench.F, bench.HEADS, bench.D) == (chip_smoke.F_FRAMES, chip_smoke.HEADS, chip_smoke.DH)
+    assert sum(_common.TEMPORAL_SHAPES.values()) * _common.DDIM_STEPS == 100
+    assert bench.LAYER.shapes is _common.TEMPORAL_SHAPES is bench_attn_ablate.TEMPORAL_SHAPES
+    assert (_common.F, _common.HEADS, _common.D, _common.DDIM_STEPS) == (
+        chip_smoke.F_FRAMES, chip_smoke.HEADS, chip_smoke.DH, chip_smoke.DDIM_STEPS)
+    assert bench.LAYER.launches == 1 and bench.LAYER.fn is A.fused_temporal_layer
+    assert list(bench.LAYER.scan(16)) == ["K=1", "K=2", "K=4", "K=8"]
     args = bench.make_args(64, 4, "cpu")
     assert args[0].dtype == torch.bfloat16 and tuple(args[0].shape) == (1, bench.F, 4, 64)
     assert A.fused_temporal_layer(*args).shape == args[0].shape
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             bench_attn_ablate.run_serving()
+        with pytest.raises(RuntimeError):
+            _common.run_layer(bench.LAYER)
+
+
+def test_bench_linear_layer_reads_the_serving_shapes():
+    """`scripts/bench_linear_layer.py` and `chip_smoke.py` read the linear
+    layer's serving shapes from one table (`_common.LINEAR_SHAPES`): eight
+    calls per eval, the 80 launches per video that `chip_smoke.py` counts;
+    the script's layer arguments are ones the layer takes; it reads through
+    the one layer bench (`_common.run_layer`), two launches per call, split
+    by kernel name; its scan forces only tiles the frame can take; its
+    reading needs the card."""
+    import inspect
+
+    import chip_smoke
+    from cvpr23_lfdm_torch.scripts import _common
+    from cvpr23_lfdm_torch.scripts import bench_linear_layer as bench
+
+    assert sum(_common.LINEAR_SHAPES.values()) * _common.DDIM_STEPS == 80
+    assert bench.LAYER.shapes is _common.LINEAR_SHAPES
+    assert not hasattr(chip_smoke, "LINEAR_SHAPES")
+    assert "import LINEAR_SHAPES, TEMPORAL_SHAPES" in inspect.getsource(chip_smoke.check_kernels)
+    assert bench.LAYER.launches == 2 and bench.LAYER.by == ("context", "output")
+    assert bench.LAYER.fn is A.fused_spatial_linear_layer
+    assert list(bench.scan(16)) == ["G=1,R=16", "G=2,R=16", "G=4,R=16", "G=8,R=16"]
+    assert len(bench.scan(1024)) == 16
+    args = bench.make_args(64, 4, "cpu")
+    assert args[0].dtype == torch.bfloat16 and tuple(args[0].shape) == (1, _common.F, 4, 64)
+    assert A.fused_spatial_linear_layer(*args).shape == args[0].shape
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            _common.run_layer(bench.LAYER)
 
 
 def test_temporal_layer_plan_raises_when_no_block_fits():
@@ -196,18 +233,190 @@ def test_temporal_layer_plan_raises_when_no_block_fits():
         A.temporal_layer_plan(1, 64, 16, 1024, 16, 132)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c,n", [(64, 1024), (256, 16)])
-def test_fused_spatial_linear_layer_kernel(dev, dtype, c, n):
-    g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn(1, 6, n, c, generator=g, device=dev).to(dtype)
+def _linear_args(dev, dtype, b, f, n, c, heads=8, seed=1, branch=False):
+    """Seeded layer arguments. With unit inputs (x ~ N(0, 1), W_out / sqrt(hd))
+    the attention term W_out·o is ~0.2 / sqrt(HW), below one bf16 ulp of
+    the residual, so a fault in the context (its split merge, its scale, a
+    head's context for another's) hides under the bf16 gate. `branch` makes
+    that term O(1) and the residual small: x / 16 (the LayerNorm does not
+    see the scale) and W_out * 2 sqrt(HW), so the gate holds the attention
+    branch itself (its rms is 0.36-0.55 at every case here)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = heads * 32
+    xs, ws = (1 / 16, 2 * n ** 0.5) if branch else (1.0, 1.0)
+    x = (xs * torch.randn(b, f, n, c, generator=g, device=dev)).to(dtype)
     gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
-    wqkv = (torch.randn(c, 768, generator=g, device=dev) / c ** 0.5).to(dtype)
-    wout = (torch.randn(256, c, generator=g, device=dev) / 16).to(dtype)
+    wqkv = (torch.randn(c, 3 * hd, generator=g, device=dev) / c ** 0.5).to(dtype)
+    wout = (ws * torch.randn(hd, c, generator=g, device=dev) / hd ** 0.5).to(dtype)
     bout = 0.1 * torch.randn(c, generator=g, device=dev)
-    args = (x, gamma, wqkv, wout, bout, 8, 32)
-    _close(A.fused_spatial_linear_layer(*args), A.fused_spatial_linear_layer_plain(*args), dtype)
+    return (x, gamma, wqkv, wout, bout, heads, 32)
+
+
+def _close_linear(out, args, dtype, branch):
+    """`out` against the plain layer; with branch inputs, first that the
+    attention branch (plain - x) is ten times the gate's atol or more."""
+    ref = A.fused_spatial_linear_layer_plain(*args)
+    if branch:
+        rms = float((ref.float() - args[0].float()).pow(2).mean().sqrt())
+        assert rms >= 10 * TOL[dtype][0], rms
+    _close(out, ref, dtype)
+
+
+# (B, F, HW, C): the seven serving shapes (B=1, F=40); C = 16, 48 (rows of
+# 2 and 6 16-byte chunks: a narrower swizzle), 192 and 320 (the LayerNorm's
+# lanes per row a power of two below C / 8); HW = 1, 8, 48 and 100 (a short
+# last tile, whose pad rows must not enter the k softmax; 48 and 100 raised
+# before the tail was masked); B = 2
+_LINEAR_CASES = [(1, 40, 1024, 64), (1, 40, 256, 128), (1, 40, 256, 64), (1, 40, 64, 256),
+                 (1, 40, 64, 128), (1, 40, 16, 512), (1, 40, 16, 256),
+                 (1, 6, 64, 16), (1, 6, 100, 48), (1, 6, 64, 192), (1, 6, 48, 320),
+                 (1, 6, 1, 64), (1, 6, 8, 128), (1, 6, 48, 64), (1, 6, 100, 128), (2, 6, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["unit", "branch"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,f,n,c", _LINEAR_CASES)
+def test_fused_spatial_linear_layer_kernel(dev, dtype, b, f, n, c, inputs):
+    """Kernel against the plain layer, one count per call, and the same bits
+    when run twice (no atomics: the bf16 splits merge in rank order); with
+    unit inputs and with inputs that make the attention branch O(1)
+    (`_linear_args`)."""
+    args = _linear_args(dev, dtype, b, f, n, c, branch=inputs == "branch")
+    before = A.fused_spatial_linear_layer.launches
+    out = A.fused_spatial_linear_layer(*args)
+    assert A.fused_spatial_linear_layer.launches == before + 1
+    _close_linear(out, args, dtype, inputs == "branch")
+    assert torch.equal(out, A.fused_spatial_linear_layer(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,rows,heads,n,c", [
+    (1, 16, 8, 100, 64), (2, 32, 8, 100, 128), (4, 64, 8, 48, 64), (8, 128, 8, 300, 64),
+    (8, 16, 8, 20, 512), (2, 128, 8, 1100, 64), (1, 48, 4, 70, 192), (3, 16, 3, 33, 48),
+    (2, 32, 16, 40, 64), (8, 16, 8, 30, 16)])
+@pytest.mark.parametrize("inputs", ["unit", "branch"])
+def test_fused_spatial_linear_layer_kernel_at_forced_plans(dev, monkeypatch, cluster, rows, heads, n, c,
+                                                           inputs):
+    """The bf16 kernel under a head grouping and tile forced through the
+    plan: one head per block (G = heads) or several, G = 3 (uneven column
+    slices), ranks with no column (C = 16, G = 8), a frame of more than 8
+    tiles (splits that take two), 16 heads; against the plain layer, with
+    unit inputs and with an O(1) attention branch, and the same bits
+    twice."""
+    import functools
+
+    monkeypatch.setattr(A, "linear_layer_plan",
+                        functools.partial(A.linear_layer_plan, cluster=cluster, rows=rows))
+    args = _linear_args(dev, torch.bfloat16, 2, 5, n, c, heads, seed=9, branch=inputs == "branch")
+    out = A.fused_spatial_linear_layer(*args)
+    _close_linear(out, args, torch.bfloat16, inputs == "branch")
+    assert torch.equal(out, A.fused_spatial_linear_layer(*args))
+
+
+@pytest.mark.cuda
+def test_fused_spatial_linear_layer_bf16_needs_c_multiple_of_16(dev):
+    args = _linear_args(dev, torch.bfloat16, 1, 2, 16, 40)
+    with pytest.raises(ValueError, match="C % 16"):
+        A.fused_spatial_linear_layer(*args)
+    f32 = _linear_args(dev, torch.float32, 1, 2, 16, 40)  # fp32 takes any C
+    _close(A.fused_spatial_linear_layer(*f32), A.fused_spatial_linear_layer_plain(*f32), torch.float32)
+
+
+def _linear_smem_spec(kernel, c, rows, heads, groups):
+    """The bf16 linear-layer blocks' shared memory as this test reads the
+    kernel's layout (`csrc/fused_spatial_linear_layer.cu`, `ctx_layout` and
+    `out_layout`); `test_linear_layer_smem_spec_is_the_kernels` holds it to
+    the library's own count on the card. Regions start on 128 bytes."""
+    up = lambda nbytes: -(-nbytes // 128) * 128
+    hpb = heads // groups
+    if kernel == 0:  # W_k|W_v [C][64] per head (later per head max|sum|context fp32), x [R][C], gamma
+        return up(max(hpb * c * 128, hpb * (64 + 1024) * 4)) + up(rows * c * 2) + c * 4
+    cw = 16 * -(-(c // 16) // groups)  # W_q [C][32] and context [32][32] per head, W_out slice,
+    return (up(hpb * c * 64) + hpb * 2048 + up(heads * 32 * cw * 2)  # x [R][C], o [R][hd],
+            + up(rows * c * 2) + up(rows * heads * 64) + up(c * 4) + cw * 4)  # gamma, b_out slice
+
+
+@pytest.mark.cuda
+def test_linear_layer_smem_spec_is_the_kernels(dev):
+    smem = A.linear_layer_smem()
+    for c in (16, 48, 64, 128, 192, 320, 512):
+        for rows in (16, 32, 48, 64, 128):
+            for heads, groups in ((8, 1), (8, 2), (8, 4), (8, 8), (3, 3), (16, 2)):
+                for kernel in (0, 1):
+                    assert smem(kernel, c, rows, heads, groups) == _linear_smem_spec(
+                        kernel, c, rows, heads, groups), (kernel, c, rows, heads, groups)
+
+
+# (C, HW) -> context (rows, head groups, splits), output (rows, cluster):
+# B=1, F=40, 8 heads on the H100's 132 SMs; at each shape the scan's fastest
+# forced (G, R) or, at (128, 256), within 2% of it (`bench_linear_layer
+# --scan`, which forces both launches alike)
+_LINEAR_PLANS = {(64, 1024): ((128, 1, 8), (128, 1)), (128, 256): ((128, 1, 2), (96, 1)),
+                 (64, 256): ((128, 1, 2), (128, 1)), (256, 64): ((64, 2, 1), (64, 2)),
+                 (128, 64): ((32, 1, 2), (32, 1)), (512, 16): ((16, 4, 1), (16, 4)),
+                 (256, 16): ((16, 2, 1), (16, 2))}
+
+
+@pytest.mark.parametrize("c,hw", list(_LINEAR_PLANS))
+def test_linear_layer_plan_at_the_serving_shapes(c, hw):
+    """The plan of each serving shape: tile rows, head groups (clusters of
+    the output launch), splits of a frame per context cluster, and each
+    block's shared memory, which fits the card."""
+    plan = A.linear_layer_plan(1, 40, hw, c, 8, 132, _linear_smem_spec)
+    ctx, out = plan["context"], plan["output"]
+    assert (ctx["rows"], ctx["head_groups"], ctx["splits"]) == _LINEAR_PLANS[(c, hw)][0]
+    assert (out["rows"], out["cluster"]) == _LINEAR_PLANS[(c, hw)][1]
+    assert ctx["smem"] == _linear_smem_spec(0, c, ctx["rows"], 8, ctx["head_groups"]) <= A._MAX_SMEM
+    assert out["smem"] == _linear_smem_spec(1, c, out["rows"], 8, out["cluster"]) <= A._MAX_SMEM
+
+
+@pytest.mark.parametrize("b,f,hw,c,heads,sms", [
+    (1, 40, 1024, 64, 8, 132), (1, 40, 16, 512, 8, 132), (2, 6, 100, 48, 8, 132),
+    (1, 6, 1, 64, 8, 132), (1, 40, 5000, 128, 8, 132), (2, 5, 33, 48, 3, 132),
+    (1, 17, 1000, 320, 16, 12), (8, 40, 1024, 64, 8, 132), (1, 2, 70, 1024, 8, 132),
+    (1, 40, 200, 128, 8, 132), (1, 3, 1000, 64, 8, 132)])
+def test_linear_layer_plan_covers_every_row_once(b, f, hw, c, heads, sms):
+    """The bf16 plan: head groups G divide `heads` with at most 8 heads (one
+    context warp each) per group, the smallest whose block fits; tiles of R
+    rows (a multiple of 16, at most 128, the least for their count) cover
+    the frame's rows once; R is the largest that fits unless the grid of a
+    larger one had fewer blocks than half the SMs; the KS splits of a
+    context cluster (at most 8) take every KS-th tile, none idle when the
+    frame has KS tiles or more; both blocks fit the card's shared
+    memory."""
+    plan = A.linear_layer_plan(b, f, hw, c, heads, sms, _linear_smem_spec)
+    groups = [g for g in range(1, 9) if heads % g == 0 and heads // g <= 8]
+    strips = -(-hw // 16)
+    for key, gk, kernel in (("context", "head_groups", 0), ("output", "cluster", 1)):
+        p = plan[key]
+        r, g = p["rows"], p[gk]
+        fits = lambda rr, gg: _linear_smem_spec(kernel, c, rr, heads, gg) <= A._MAX_SMEM
+        assert g == min(gg for gg in groups if fits(16, gg))
+        assert 16 <= r <= 16 * min(8, strips) and r % 16 == 0 and fits(r, g)
+        tiles = -(-hw // r)
+        assert r == 16 * -(-strips // tiles)  # even tiles
+        blocks = lambda rr: (A.linear_layer_plan(b, f, hw, c, heads, sms, _linear_smem_spec, g, rr)
+                             [key]["grid"])
+        larger = [rr for rr in range(r + 16, 16 * min(8, strips) + 1, 16)
+                  if fits(rr, g) and -(-hw // rr) < tiles]
+        for rr in larger:  # a larger tile was cut for too few blocks
+            assert blocks(rr)[0] * blocks(rr)[1] * b * f < sms / 2
+    tiles = -(-hw // plan["context"]["rows"])
+    ks = plan["context"]["splits"]
+    assert ks == min(8, tiles) and plan["context"]["grid"] == (plan["context"]["head_groups"], ks, b * f)
+    seen = sorted(t for y in range(ks) for t in range(y, tiles, ks))
+    assert seen == list(range(tiles))
+    r2 = plan["output"]["rows"]
+    assert plan["output"]["grid"] == (plan["output"]["cluster"], -(-hw // r2), b * f)
+    assert heads // plan["context"]["head_groups"] <= 8  # a warp per head
+
+
+def test_linear_layer_plan_raises_when_no_block_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        A.linear_layer_plan(1, 40, 16, 4096, 8, 132, _linear_smem_spec)
+    with pytest.raises(ValueError, match="cluster"):
+        A.linear_layer_plan(1, 40, 16, 64, 8, 132, _linear_smem_spec, cluster=3)
 
 
 @pytest.mark.cuda
