@@ -5,7 +5,7 @@ Run from the repository root: `python3 chip_smoke.py` (one GPU; `nvcc`
 under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 1. env      — GPU name and power limit, torch/CUDA versions, and the build
-              of the seven kernel sources in `cvpr23_lfdm_torch/csrc/` and
+              of the six kernel sources in `cvpr23_lfdm_torch/csrc/` and
               of the eight ablation builds of the temporal layer (one `nvcc`
               per library, all started together); the `-Xptxas -v` lines,
               and per bf16 kernel of the two fused layers (each
@@ -13,7 +13,9 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               context and output kernels) its registers and spills (gated:
               no spill).
 2. kernel   — each kernel against its plain PyTorch version at every shape
-              the serving path (fused layers, warp) or the training step
+              the serving path (fused layers, the decode warp: bit-equal to
+              its plain version at the three decode scales, with its device
+              time alone and its device launches per call) or the training step
               (head-packed attention, forward and backward, B=5) gives it,
               in bf16 and in fp32 (TF32 off), with its tolerance; median
               CUDA-event times of the kernel, the plain version and one
@@ -36,8 +38,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               four B=1 serving shapes and a focus case (library: SDPA on
               pre-permuted q, k, v; device times alone of both; run twice
               for bit-identity), the fused GroupNorm+FiLM+SiLU at every
-              `Block` shape of a serving eval, with and without FiLM and
-              run twice for bit-identity (no single library call), and the
+              `Block` shape of a serving eval and at B=8 (32², 64), with
+              the FiLM pair as the UNet passes it and without, run twice
+              for bit-identity, with its device time alone and its device
+              launches per call (gated: one; no single library call), and the
               fused warp+blend under both of its names for the three blends
               at `[8, 32, 32, 256]` and `[8, 128, 128, 67]` (library:
               `F.grid_sample` for blend none; device times alone of both);
@@ -88,8 +92,12 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               video under `xla`, `pallas` and `pallas3` on the same weights
               and noise, max-abs per output against `xla`, tolerance 5e-4.
 10. fused norm — `scripts/bench_unet.py`: one full-width UNet eval, bf16,
-              B=1 and B=8, `fused_norm=True` against `False`: both times,
-              the output difference, 40 launches per eval (gated).
+              B=1 and B=8, `fused_norm=True` against `False`, read in turns:
+              both times, the output difference, 40 launches per eval
+              (gated), the norm kernel's device time in a profiled eval
+              (gated: not 0), and every device launch of the eval's 40 norm
+              calls, casts and copies included (the calls replayed under
+              torch.profiler; gated: 40).
 11. ablate   — `scripts/bench_attn_ablate.py` at `[8, 40, 1024, 64]` bf16:
               ms per ablation build (eight stages, the last the cluster's
               sum of the partials) and `full - variant`; `full` is
@@ -108,7 +116,7 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
-`per`; for rows 1, 2, 4-6, 8 and 9 also `device_ms` / `library_device_ms`, the
+`per`; for rows 1-9 also `device_ms` / `library_device_ms`, the
 same calls' device time alone from torch.profiler), the `nvidia-smi`
 name/power-limit line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero without that
@@ -153,10 +161,8 @@ TRAIN_BATCH = 5
 # moves add over the pixels like a random walk: its atol is per sqrt(HW)
 DBIAS_TOL = {"float32": {"atol": 2e-3, "rtol": 1e-3}, "bfloat16": {"atol": 1e-2, "rtol": 2e-2}}
 TRAIN_PARITY_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_max_abs_rel": 2e-3}
-# fused GroupNorm+FiLM+SiLU per UNet eval at B=1: (H, C) -> (Blocks with FiLM, without)
-NORM_SHAPES = {(32, 64): (4, 8), (16, 128): (2, 2), (16, 64): (2, 2), (8, 256): (2, 2),
-               (8, 128): (2, 2), (4, 512): (4, 4), (4, 256): (2, 2)}
-BLOCKS_PER_EVAL = 40  # 20 ResnetBlocks of two Blocks each
+# the fused GroupNorm+FiLM+SiLU's Block shapes per UNet eval and its 40 Blocks:
+# `cvpr23_lfdm_torch/scripts/bench_norm.py::NORM_SHAPES`, `BLOCKS_PER_EVAL`
 # warp+blend checks: [B, H, W, C]; one call of each blend at each shape
 BLEND_SHAPES = ((8, 32, 32, 256), (8, 128, 128, 67))
 ABLATE_SHAPE = (8, 40, 1024, 64)
@@ -279,6 +285,7 @@ def check_kernels(failures: list) -> dict:
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import warp as W
     from cvpr23_lfdm_torch.scripts._common import LINEAR_SHAPES, TEMPORAL_SHAPES
+    from cvpr23_lfdm_torch.scripts.bench_norm import device_reading, one_launch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -374,19 +381,29 @@ def check_kernels(failures: list) -> dict:
             lin = torch.linspace(-1, 1, h, device=dev)
             ident = torch.stack(torch.meshgrid(lin, lin, indexing="xy"), -1)
             grid = (ident[None, None] + 0.3 * randn(1, F_FRAMES, h, h, 2)).contiguous()
-            res = compare(W.warp_video(src, grid), W.warp_video_plain(src, grid), WARP_TOL[dname])
+            call = lambda: W.warp_video(src, grid)
+            out, ref = call(), W.warp_video_plain(src, grid)
+            res = compare(out, ref, WARP_TOL[dname])
+            # the kernel rounds every step as the plain version does: the same values
+            equal = bool(torch.equal(out, ref))
+            res["ok"] = res["ok"] and equal
+            dev_ms, launches, other = device_reading(call, kernel="warp_blend_kernel")
+            res["ok"] = res["ok"] and one_launch(launches, other)
             times = None
             if timed:
                 src_nchw = src.permute(0, 3, 1, 2)
                 g4 = grid.reshape(1, F_FRAMES * h, h, 2).to(dtype)
-                times = {"kernel_ms": median_ms(lambda: W.warp_video(src, grid)),
+                gs = lambda: F.grid_sample(src_nchw, g4, mode="bilinear", padding_mode="zeros",
+                                           align_corners=False)
+                times = {"kernel_ms": median_ms(call),
                          "plain_ms": median_ms(lambda: W.warp_video_plain(src, grid), reps=5),
-                         "library_ms": median_ms(lambda: F.grid_sample(
-                             src_nchw, g4, mode="bilinear", padding_mode="zeros", align_corners=False))}
+                         "library_ms": median_ms(gs), "kernel_device_ms": dev_ms,
+                         "library_device_ms": device_ms(gs)}
             nbytes = src.numel() * esz + grid.numel() * 4 + F_FRAMES * src.numel() * esz
             flops = 8 * F_FRAMES * src.numel()
             record("warp_video", [1, F_FRAMES, h, h, c], dname, res, per_video, times,
-                   nbytes, flops, FP32_FLOPS)
+                   nbytes, flops, FP32_FLOPS, bit_equal_to_plain=equal,
+                   device_launches_per_call=launches, other_device_launches_per_call=other)
     return totals
 
 
@@ -955,6 +972,7 @@ def check_new_kernels(failures: list) -> dict:
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.ops import warp as W
+    from cvpr23_lfdm_torch.scripts.bench_norm import NORM_SHAPES, device_reading, one_launch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1006,27 +1024,34 @@ def check_new_kernels(failures: list) -> dict:
                         n_eval * DDIM_STEPS, times, nbytes, flops, **extra)
                 del qkv, bias, out
 
-            # ---- row 7: fused norm at every Block shape of a serving eval, FiLM and none
-            for (h, c), counts in NORM_SHAPES.items():
-                x = (1.5 * randn(1, f, h, h, c) + 0.3).to(dtype)
+            # ---- row 7: fused norm at every Block shape of a serving eval, FiLM and none;
+            # then B=8 at (32², 64), whose 42 MB do not fit the blocks' shared memory
+            # (read twice; off the B=1 eval, a line of its own)
+            cases = [(1, h, c, film, n_eval) for (h, c), counts in NORM_SHAPES.items()
+                     for film, n_eval in zip((True, False), counts)]
+            for b, h, c, film, n_eval in cases + [(8, 32, 64, True, 0)]:
+                x = (1.5 * randn(b, f, h, h, c) + 0.3).to(dtype)
                 gamma, beta = 1 + 0.3 * randn(c), 0.2 * randn(c)
-                for film, n_eval in zip((True, False), counts):
-                    ss = (randn(1, 1, 1, 1, c).to(dtype), randn(1, 1, 1, 1, c).to(dtype)) if film else ()
-                    call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss)
-                    out = call()
-                    res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss), TOL[dname])
-                    same = bool(torch.equal(out, call()))
-                    res["ok"] = res["ok"] and same
-                    times = None
-                    if timed:
-                        times = {"kernel_ms": median_ms(call),
-                                 "plain_ms": median_ms(lambda: N.groupnorm_film_silu_plain(
-                                     x, gamma, beta, *ss), reps=5),
-                                 "library_ms": None}
-                    nbytes = 2 * x.numel() * esz + (2 + 2 * film) * c * 4
-                    _record(totals, failures, "groupnorm_film_silu", [1, f, h, h, c], dname, res,
-                            n_eval, times, nbytes, 10 * x.numel(), FP32_FLOPS,
-                            film=film, bit_identical_twice=same)
+                # the FiLM pair as the UNet passes it: halves of one [B, 1, 1, 1, 2C] tensor
+                ss = randn(b, 1, 1, 1, 2 * c).to(dtype).chunk(2, dim=-1) if film else ()
+                call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss)
+                out = call()
+                res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss), TOL[dname])
+                same = bool(torch.equal(out, call()))
+                dev_ms, launches, other = device_reading(call)
+                res["ok"] = res["ok"] and same and one_launch(launches, other)
+                times = None
+                if timed:
+                    times = {"kernel_ms": median_ms(call),
+                             "plain_ms": median_ms(lambda: N.groupnorm_film_silu_plain(
+                                 x, gamma, beta, *ss), reps=5),
+                             "library_ms": None, "kernel_device_ms": dev_ms, "library_device_ms": None}
+                nbytes = 2 * x.numel() * esz + 2 * c * 4 + 2 * b * c * film * esz
+                _record(totals, failures, "groupnorm_film_silu", [b, f, h, h, c], dname, res,
+                        n_eval, times, nbytes, 10 * x.numel(), FP32_FLOPS,
+                        film=film, bit_identical_twice=same, device_launches_per_call=launches,
+                        other_device_launches_per_call=other)
+                del x, out
 
             # ---- rows 8+9: warp + blend, both names, three blends, two shapes
             for name, fn in (("warp_onehot", W.warp_onehot), ("warp_gather", W.warp_gather)):
@@ -1070,13 +1095,40 @@ def run_forms_parity(failures: list) -> None:
         failures.append("forms parity")
 
 
+def norm_calls(net, inputs) -> list:
+    """The arguments of every fused-norm call of one eval of `net`."""
+    import torch
+
+    from cvpr23_lfdm_torch.ops import norm as N
+
+    calls, real = [], N.groupnorm_film_silu
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    # the UNet's Blocks call it through the module, and it counts its launches on
+    # the module's name: the recorder carries the count while it stands there
+    recorded.launches = real.launches
+    N.groupnorm_film_silu = recorded
+    try:
+        with torch.no_grad():
+            net(**inputs)
+    finally:
+        N.groupnorm_film_silu = real
+        real.launches = recorded.launches
+    return calls
+
+
 def run_fused_norm(failures: list) -> dict:
     """One full-width UNet eval (bench checkpoint, bf16, `pallas3`) with and
     without the fused norm, through the port's `bench_unet`; returns the
     launch counts of one fused eval at B=1."""
     import torch
 
+    from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.scripts import bench_unet
+    from cvpr23_lfdm_torch.scripts.bench_norm import BLOCKS_PER_EVAL, device_reading, one_launch
 
     dev = torch.device("cuda")
     nets = {fused: bench_unet.make_unet("pallas3", fused, "bfloat16", dev) for fused in (False, True)}
@@ -1087,6 +1139,14 @@ def run_fused_norm(failures: list) -> dict:
         with torch.no_grad():
             out_fused = nets[True](**inputs)
         counted = counters()
+        # every device launch of the eval's norm calls, casts and copies included:
+        # the recorded calls replayed under the profiler (which late in a long
+        # process loses some kernels, never adds one)
+        calls = norm_calls(nets[True], inputs)
+        with torch.no_grad():
+            replay_ms, norm_launches, other = device_reading(
+                lambda: [N.groupnorm_film_silu(*a, **k) for a, k in calls], reps=3)
+        del calls
         if b == 1:
             launches = counted
         # read in turns: unfused, fused, fused, unfused
@@ -1100,8 +1160,7 @@ def run_fused_norm(failures: list) -> dict:
         # the kernel's own device time in one eval (the per-call timings above
         # it include the wrapper's host work, which is larger at these sizes)
         rows = bench_unet.trace(nets[True], inputs, top=10 ** 6)
-        gn_device_ms = {k: sum(r["device_ms"] for r in rows if k in r["name"])
-                        for k in ("gn_partial_kernel", "gn_apply_kernel")}
+        gn_device_ms = sum(r["device_ms"] for r in rows if "groupnorm_film_silu_kernel" in r["name"])
         diff = (out_fused - out_plain).abs()
         scale = float(out_plain.abs().max())
         tol = FUSED_NORM_TOL
@@ -1110,7 +1169,9 @@ def run_fused_norm(failures: list) -> dict:
             "launches_ok": counted["groupnorm_film_silu"] == BLOCKS_PER_EVAL
             and fused["launches_per_eval"]["groupnorm_film_silu"] == BLOCKS_PER_EVAL
             and plain["launches_per_eval"]["groupnorm_film_silu"] == 0
-            and counted["fused_temporal_layer"] == 10 and counted["fused_spatial_linear_layer"] == 8,
+            and counted["fused_temporal_layer"] == 10 and counted["fused_spatial_linear_layer"] == 8
+            and one_launch(norm_launches, other, BLOCKS_PER_EVAL),
+            "norm_device_time_read": bool(gn_device_ms),
             "close": float(diff.max()) <= tol["max_rel"] * scale
             and float(diff.mean()) <= tol["mean_rel"] * scale,
         }
@@ -1118,6 +1179,8 @@ def run_fused_norm(failures: list) -> dict:
               "unet_eval_ms_fused": [r["median_ms"] for r in readings[True]],
               "unet_eval_ms_unfused": [r["median_ms"] for r in readings[False]],
               "groupnorm_device_ms_per_eval": gn_device_ms,
+              "norm_calls_replayed": {"device_ms_per_eval": replay_ms, "device_launches_per_eval": norm_launches,
+                                      "other_device_launches_per_eval": other},
               "max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
               "out_max_abs": scale, "tol": tol, "launches_per_eval": counted, **checks,
               "gpu": gpu_line()})
@@ -1226,7 +1289,7 @@ def run_bench_warp(failures: list) -> dict:
     for s, c in bench_warp.DECODE_SCALES:
         image, grid5 = bench_warp.make_case(b, f, s, c, torch.bfloat16, dev)
         per_scale[f"{s}x{c}"] = bench_warp.sweep(("warp_video", "grid_sample", "warp_onehot"),
-                                                 image, grid5, dev)
+                                                 image, grid5, dev, device_time=("warp_video", "grid_sample"))
         del image, grid5
     launches = counters()
     every = rows + [r for v in per_scale.values() for r in v]
@@ -1263,8 +1326,8 @@ def main() -> int:
     t0 = time.perf_counter()
     from cvpr23_lfdm_torch.ops import attention as A
 
-    names = ["fused_temporal_layer", "fused_spatial_linear_layer", "warp_video"]
-    new_sources = ["packed_attention", "groupnorm_film_silu", "warp_blend"]
+    names = ["fused_temporal_layer", "fused_spatial_linear_layer", "warp_blend"]
+    new_sources = ["packed_attention", "groupnorm_film_silu"]
     variants = [("fused_temporal_layer", A.ablation_defines(v)) for v in A.ABLATIONS]
     built = _build.build(names + ["headpacked_attention"] + new_sources + variants)
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -1314,7 +1377,7 @@ def main() -> int:
                                  launches, "serving video (pallas3)"),
         "fused_spatial_linear_layer": ("fused_spatial_linear_layer.cu", jops + "attention_pallas.py:745",
                                        launches, "serving video (pallas3)"),
-        "warp_video": ("warp_video.cu", jops + "warp_pallas.py:440", launches, "serving video (pallas3)"),
+        "warp_video": ("warp_blend.cu", jops + "warp_pallas.py:440", launches, "serving video (pallas3)"),
         "headpacked_attention_fwd": ("headpacked_attention.cu", jops + "attention_pallas.py:311",
                                      train_launches, "training step"),
         "headpacked_attention_bwd": ("headpacked_attention.cu", jops + "attention_pallas.py:366",

@@ -14,9 +14,15 @@
 // and, in accumulate(), each corner's value * weight added in the order
 // (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1). A corner outside the image
 // weighs zero and points at the clamped pixel, as the plain version gathers.
+// A bf16 image is read as it is stored and each value widened to fp32
+// exactly; the weights and sums are fp32 as above, and the caller rounds the
+// sum to bf16 once, as the plain version's final cast does.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace lfdm {
 
@@ -74,6 +80,43 @@ __device__ __forceinline__ float4 accumulate(const float4* __restrict__ img, con
     acc.y = __fadd_rn(acc.y, __fmul_rn(v[k].y, w[k]));
     acc.z = __fadd_rn(acc.z, __fmul_rn(v[k].z, w[k]));
     acc.w = __fadd_rn(acc.w, __fmul_rn(v[k].w, w[k]));
+  }
+  return acc;
+}
+
+// Eight bf16 channels moved as one 16-byte unit, and their fp32 sample
+struct alignas(16) Bf16x8 {
+  uint4 u;
+};
+struct Float8 {
+  float v[8];
+};
+
+__device__ __forceinline__ float accumulate(const __nv_bfloat16* __restrict__ img, const Corners& s,
+                                            int c) {
+  float acc = __fmul_rn(__bfloat162float(__ldg(img + s.off.x + c)), s.w.x);
+  acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(__ldg(img + s.off.y + c)), s.w.y));
+  acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(__ldg(img + s.off.z + c)), s.w.z));
+  return __fadd_rn(acc, __fmul_rn(__bfloat162float(__ldg(img + s.off.w + c)), s.w.w));
+}
+
+__device__ __forceinline__ Float8 accumulate(const Bf16x8* __restrict__ img, const Corners& s,
+                                             int c) {
+  // offsets are in elements; a Bf16x8 image has C % 8 == 0, so they divide by 8
+  const int off[4] = {s.off.x >> 3, s.off.y >> 3, s.off.z >> 3, s.off.w >> 3};
+  const float w[4] = {s.w.x, s.w.y, s.w.z, s.w.w};
+  Float8 acc;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(img + off[k] + c));
+    const uint32_t word[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // bf16 -> fp32 is exact: the 16 bits become the high half
+      const uint32_t bits = i % 2 == 0 ? word[i / 2] << 16 : word[i / 2] & 0xffff0000u;
+      const float p = __fmul_rn(__uint_as_float(bits), w[k]);
+      acc.v[i] = k == 0 ? p : __fadd_rn(acc.v[i], p);
+    }
   }
   return acc;
 }

@@ -112,6 +112,22 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
+_bound: dict = {}
+
+
+def bind(name: str, fname: str, argtypes: list, defines: tuple = ()):
+    """The C function `fname` of the library for `csrc/<name>.cu`, its
+    prototype (returns int, takes `argtypes`) set once per library rather
+    than on every call."""
+    key = (name, tuple(defines), fname)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(load(name, defines), fname)
+        fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+        _bound[key] = fn
+    return fn
+
+
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise on a non-zero `cudaGetLastError()` returned by a launch."""
     if code != 0:

@@ -3,7 +3,7 @@ one source per grid fused with an occlusion blend.
 
 Counterpart of `cvpr23_lfdm_tpu/ops/warp.py::grid_sample` (the plain
 version) and of the Pallas kernel `cvpr23_lfdm_tpu/ops/warp_pallas.py::
-warp_video_tiled` (`csrc/warp_video.cu`). Semantics are those of
+warp_video_tiled` (`csrc/warp_blend.cu`). Semantics are those of
 `torch.nn.functional.grid_sample` with `align_corners=False`,
 `padding_mode='zeros'`, bilinear, grid last axis `(x, y)` in [-1, 1], in
 channel-last layout.
@@ -14,12 +14,13 @@ tile whose corners leave the window to a gather fallback. On the H100 a
 warp is bound by bytes: the four corners of each output are read from
 the shared `[B, H, W, C]` source (which stays in the 50 MB L2 at every
 decode scale) and the output `[B, F, H, W, C]` is written once.
-`csrc/warp_video.cu` gives one thread to each output element, with
-neighbouring threads on neighbouring channels of one pixel (coalesced
-corner reads and output writes); out-of-image corners weigh zero; it
-accumulates in fp32 and writes the source's dtype. It is exact for every
-flow, so it has no windows, tiles or fit check, and the generator uses it
-at every decode scale.
+:func:`warp_video` launches the one warp core of the port,
+`csrc/warp_blend.cu`, with a frame axis (output image i samples source
+image i / F) and in the source's dtype: fp32 weights and sums, the sum
+rounded once to bf16 or kept in fp32, every step rounded as the plain
+version rounds it, so that the two agree bit for bit. It is exact for
+every flow, so it has no windows, tiles or fit check, and the generator
+uses it at every decode scale.
 
 :func:`warp_onehot` and :func:`warp_gather` are the counterparts of the
 Pallas kernels of the same names in `warp_pallas.py`: one source per grid,
@@ -32,9 +33,10 @@ So the JAX package's `tiled_max_res` / `MAX_HW` limits have no counterpart
 here. That kernel works out each output pixel's four corners (32-bit
 offsets inside its image, weights, `csrc/bilinear.cuh`) once, by one
 thread of a block that owns 256 consecutive pixels, then streams the
-tile's pixels x channels outputs with all its threads (16-byte vectors
-where `C % 4 == 0`), the blend in its epilogue; it rounds every step as
-the plain version does. One image may hold at most 2^31 - 1 elements.
+tile's pixels x channels outputs with all its threads (16-byte units
+where C fills them: `C % 4 == 0` in fp32, `C % 8 == 0` in bf16), the blend
+in its epilogue; it rounds every step as the plain version does. One
+image may hold at most 2^31 - 1 elements.
 :func:`warp_blend_plain` is their plain version.
 """
 
@@ -87,11 +89,16 @@ def warp_video_plain(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, f, h, w, src.shape[-1])
 
 
+_MAX_IMAGE = 2 ** 31 - 1  # elements of one [H, W, C] image: the warp core's 32-bit offsets
+_PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
+
+
 def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
     """Warp of one source per video at per-frame grids, `[B, F, H, W, C]`.
-    CPU tensors take the plain version; CUDA tensors launch
-    `csrc/warp_video.cu`, which is forward-only (a gradient goes through
-    :func:`grid_sample`)."""
+    CPU tensors take the plain version; CUDA tensors launch the warp core
+    of `csrc/warp_blend.cu` with a frame axis, which is forward-only (a
+    gradient goes through :func:`grid_sample`). One source image may hold
+    at most 2^31 - 1 elements."""
     if src.device.type == "cpu":
         return warp_video_plain(src, grid5)
     if src.device.type != "cuda":
@@ -108,24 +115,20 @@ def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
         raise ValueError("warp_video: source and grid on different devices")
     if not (src.is_contiguous() and grid5.is_contiguous()):
         raise ValueError("warp_video: inputs must be contiguous")
+    if h * w * c > _MAX_IMAGE:
+        raise ValueError(f"warp_video: one image holds {h * w * c} elements, more than "
+                         f"the kernel's 32-bit offsets reach ({_MAX_IMAGE})")
     _build.require_no_grad("warp_video", src, grid5)
     out = torch.empty((b, f, h, w, c), dtype=src.dtype, device=src.device)
-    lib = _build.load("warp_video")
-    name = "launch_warp_video_" + ("f32" if src.dtype == torch.float32 else "bf16")
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
-    code = fn(
-        _build.ptr(src), _build.ptr(grid5), _build.ptr(out),
-        b, f, h, w, c, _build.stream(src.device),
-    )
-    _build.check(lib, name, code)
+    fn = _build.bind("warp_blend", "launch_warp_video", [ctypes.c_int] + [_PTR] * 3 + [_LL] * 5 + [_PTR])
+    code = fn(int(src.dtype == torch.bfloat16), _build.ptr(src), _build.ptr(grid5), _build.ptr(out),
+              b, f, h, w, c, _build.stream(src.device))
+    _build.check(_build.load("warp_blend"), "launch_warp_video", code)
     warp_video.launches += 1
     return out
 
 
 _BLENDS = {"none": 0, "occlusion": 1, "previous": 2}
-_MAX_IMAGE = 2 ** 31 - 1  # elements of one [H, W, C] image of the fused warp+blend
 
 
 def _blend_mode(occlusion, previous, blend):
@@ -182,15 +185,12 @@ def _warp_blend(wrapper, image, grid, occlusion, previous, blend):
     _build.require_no_grad(name, *(t for t, _ in used.values()))
     f32 = {key: t.float() for key, (t, _) in used.items()}  # as the TPU wrappers cast
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=image.device)
-    lib = _build.load("warp_blend")
-    fn = lib.launch_warp_blend_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn = _build.bind("warp_blend", "launch_warp_blend_f32", [_PTR] * 5 + [_LL] * 4 + [ctypes.c_int, _PTR])
     null = ctypes.c_void_p(None)
     ptr = lambda key: _build.ptr(f32[key]) if key in f32 else null
     code = fn(ptr("image"), ptr("grid"), ptr("occlusion"), ptr("previous"), _build.ptr(out),
               b, h, w, c, _BLENDS[blend], _build.stream(image.device))
-    _build.check(lib, "launch_warp_blend_f32", code)
+    _build.check(_build.load("warp_blend"), "launch_warp_blend_f32", code)
     wrapper.launches += 1
     return out
 

@@ -8,15 +8,19 @@ grids, bf16), on smooth near-identity flows:
   plain        the port's plain gather warp (`ops.warp.warp_video_plain`)
   grid_sample  one `F.grid_sample` call on the NCHW source (a yardstick:
                the port never calls it)
-  warp_video   the decode kernel (`csrc/warp_video.cu`)
+  warp_video   the decode warp (`csrc/warp_blend.cu`, frame axis, bf16)
   warp_gather  the fused warp+blend kernel (`csrc/warp_blend.cu`), frames
                folded into the batch and the shared source repeated, as the
                JAX script probes its lane-gather kernel; fp32 in and out
 
 `--per-scale` times `warp_video`, `F.grid_sample` and `warp_onehot`
 (folded over frames as above, blend none) at every decode scale of the
-generator (32² x 256, 64² x 128, 128² x 67 channels). Every variant's mean
-is held against the first one's (`val_drift`).
+generator (32² x 256, 64² x 128, 128² x 67 channels), and reads the
+device time alone of `warp_video` and `F.grid_sample` (torch.profiler,
+`device_ms`). Every variant's mean is held against the first one's
+(`val_drift`). The script uses only public functions, so it can time
+another checkout of the package (`PYTHONPATH=<checkout> python <this
+file> --per-scale`).
 
 Usage: python -m cvpr23_lfdm_torch.scripts.bench_warp [--batch 8] [--per-scale]
 """
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from cvpr23_lfdm_torch.ops import warp as warp_ops
 from cvpr23_lfdm_torch.scripts._common import DTYPES, add_device_arg, card_line, emit
 from cvpr23_lfdm_torch.utils.device import resolve_device
-from cvpr23_lfdm_torch.utils.profiling import time_fn
+from cvpr23_lfdm_torch.utils.profiling import device_ms, time_fn
 
 DECODE_SCALES = ((32, 256), (64, 128), (128, 67))
 
@@ -74,9 +78,11 @@ def variants(image, grid5) -> dict:
     }
 
 
-def sweep(names, image, grid5, device, iters: int = 8, warmup: int = 2) -> list:
+def sweep(names, image, grid5, device, iters: int = 8, warmup: int = 2, device_time=()) -> list:
     """Time the named variants on one case; `val_drift` is each mean's
-    distance from the first variant's."""
+    distance from the first variant's. The variants named in `device_time`
+    also get `device_ms`, their device time alone (None: the profiler lost
+    kernels)."""
     fns = variants(image, grid5)
     rows, ref = [], None
     with torch.no_grad():
@@ -86,6 +92,8 @@ def sweep(names, image, grid5, device, iters: int = 8, warmup: int = 2) -> list:
             res = time_fn(fns[name], iters=iters, warmup=warmup, device=device)
             rows.append({"variant": name, "ms": res["median_ms"], "clock": res["clock"],
                          "val_drift": abs(val - ref)})
+            if name in device_time:
+                rows[-1]["device_ms"] = device_ms(fns[name], launches=1 if name == "warp_video" else None)
     return rows
 
 
@@ -106,7 +114,8 @@ def main() -> None:
     if args.per_scale:
         for s, c in DECODE_SCALES:
             image, grid5 = make_case(args.batch, args.frames, s, c, dtype, device)
-            for row in sweep(("warp_video", "grid_sample", "warp_onehot"), image, grid5, device):
+            for row in sweep(("warp_video", "grid_sample", "warp_onehot"), image, grid5, device,
+                             device_time=("warp_video", "grid_sample") if device.type == "cuda" else ()):
                 emit({"scale": s, "ch": c, **row, "card": card})
         return
     image, grid5 = make_case(args.batch, args.frames, args.size, args.ch, dtype, device)

@@ -430,6 +430,32 @@ def test_warp_video_kernel(dev, dtype):
     torch.testing.assert_close(out.float(), W.warp_video_plain(src, grid).float(), atol=atol, rtol=atol)
 
 
+def _warp_video_inputs(dev, dtype, c, w, offset, b=2, f=5, h=24, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = b * h * w * c
+    src = torch.randn(n + offset, generator=g, device=dev).to(dtype)[offset:].view(b, h, w, c)
+    grid = 1.4 * torch.rand(b, f, h, w, 2, generator=g, device=dev) * 2 - 1.4
+    return src, grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,w,offset", [(1, 21, 0), (3, 21, 0), (67, 21, 0), (128, 21, 0),
+                                        (256, 21, 0), (8, 20, 0), (128, 21, 1), (67, 20, 1)])
+def test_warp_video_kernel_is_bit_equal_to_plain(dev, dtype, c, w, offset):
+    """The decode warp on the warp core: C below a unit, odd, and whole
+    16-byte units (C = 8, 128, 256 in bf16; 128, 256 in fp32), odd W, grids
+    out to +-1.4 (corners off the image), and a source that starts one
+    element in (the scalar path); the same values as the plain version, bit
+    for bit, in one launch."""
+    src, grid = _warp_video_inputs(dev, dtype, c, w, offset)
+    before = W.warp_video.launches
+    with torch.no_grad():
+        out = W.warp_video(src, grid)
+    assert W.warp_video.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out, W.warp_video_plain(src, grid))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_check_arguments(dev):
     src = torch.randn(1, 8, 8, 4, device=dev)
@@ -664,6 +690,155 @@ def test_groupnorm_film_silu_kernel(dev, dtype, film, shape, groups):
     assert N.groupnorm_film_silu.launches == before + 2
     assert torch.equal(out, again)  # no atomics: the same bits
     _close(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss, groups=groups), dtype)
+
+
+def _norm_args(dev, dtype, b, f, h, c, film, offset=0, seed=10):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = b * f * h * h * c
+    x = (1.5 * torch.randn(n + offset, generator=g, device=dev) + 0.3).to(dtype)
+    x = x[offset:].view(b, f, h, h, c)
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    beta = 0.2 * torch.randn(c, generator=g, device=dev)
+    ss = ()
+    if film == "unet":  # as the bf16 UNet passes it: halves of one [B, 1, 1, 1, 2C] tensor
+        ss = torch.randn(b, 1, 1, 1, 2 * c, generator=g, device=dev).to(dtype).chunk(2, dim=-1)
+    elif film == "bf16":  # bf16 tables beside an fp32 x, gamma and beta in bf16 too
+        ss = tuple(torch.randn(b, c, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        gamma, beta = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    return (x, gamma, beta, *ss)
+
+
+def _one_launch(call) -> bool:
+    """One device launch of the norm kernel per call, and no other."""
+    from cvpr23_lfdm_torch.scripts.bench_norm import device_reading, one_launch
+
+    return one_launch(*device_reading(call, reps=3)[1:])
+
+
+# (B, F, H, C): every Block shape of a B=1 serving eval, B=8 at (32², 64)
+# (42 MB of bf16: more than the blocks' shared memory holds, so part of it is
+# read twice), C = 24 (the scalar path) and C = 768
+_NORM_CASES = [(1, 40, 32, 64), (1, 40, 16, 128), (1, 40, 16, 64), (1, 40, 8, 256),
+               (1, 40, 8, 128), (1, 40, 4, 512), (1, 40, 4, 256), (8, 40, 32, 64),
+               (2, 3, 5, 24), (1, 2, 3, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("film", ["none", "unet"])
+@pytest.mark.parametrize("b,f,h,c", _NORM_CASES)
+def test_groupnorm_film_silu_kernel_at_the_unet_shapes(dev, dtype, film, b, f, h, c):
+    """One device launch per call (no cast or copy of the tables), the same
+    bits when run again, and within the card's tolerance of the plain
+    version."""
+    groups = 4 if c == 24 else 8
+    args = _norm_args(dev, dtype, b, f, h, c, film)
+    call = lambda: N.groupnorm_film_silu(*args, groups=groups)
+    with torch.no_grad():
+        out = call()
+        assert torch.equal(out, call())
+        assert _one_launch(call)
+    _close(out, N.groupnorm_film_silu_plain(*args, groups=groups), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset,film", [(1, "unet"), (0, "bf16"), (1, "none")])
+def test_groupnorm_film_silu_kernel_scalar_path_and_tables(dev, dtype, offset, film):
+    """An x that starts one element in takes the scalar path; bf16 tables
+    beside an fp32 x are read as they are."""
+    args = _norm_args(dev, dtype, 1, 40, 8, 128, film, offset)
+    assert N.norm_vec(128, 8, args[0].element_size(), args[0].data_ptr()) == (1 if offset else 16 // args[0].element_size())
+    with torch.no_grad():
+        out = N.groupnorm_film_silu(*args)
+        assert _one_launch(lambda: N.groupnorm_film_silu(*args))
+    _close(out, N.groupnorm_film_silu_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+def test_groupnorm_film_silu_smem_limit_is_the_kernels(dev):
+    from cvpr23_lfdm_torch.ops import _build
+
+    assert _build.bind("groupnorm_film_silu", "groupnorm_film_silu_smem_limit", [])() == N._SMEM
+    for bf16 in (False, True):
+        for vec in (False, True):
+            assert N._blocks_per_sm(dev.index or 0, bf16, vec) >= 1
+
+
+@pytest.mark.parametrize("b,f,h,c,groups,esz", [
+    (1, 40, 32, 64, 8, 2), (8, 40, 32, 64, 8, 2), (1, 40, 4, 256, 8, 2), (1, 40, 4, 512, 8, 4),
+    (2, 3, 5, 24, 4, 4), (1, 2, 3, 768, 8, 2), (8, 40, 32, 64, 8, 4), (3, 7, 9, 2048, 8, 4)])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("sms,per_sm", [(132, 2), (132, 1), (16, 2)])
+def test_norm_plan_covers_every_row_once(b, f, h, c, groups, esz, vec, sms, per_sm):
+    """Every row of a batch entry in one block, no empty block, the grid
+    within what the card holds at once, the held rows and the scratch
+    within the block's shared memory."""
+    n = f * h * h
+    v = 16 // esz if vec else 1
+    plan = N.norm_plan(b, n, c, groups, esz, v, sms, per_sm)
+    assert plan.vec == v and plan.blocks >= 1 and b * plan.blocks <= sms * per_sm
+    assert plan.blocks * plan.rows >= n > (plan.blocks - 1) * plan.rows
+    assert 0 <= plan.hold_rows <= plan.rows and plan.smem <= N._SMEM
+    assert plan.smem == N._scratch(c, groups, v) + plan.hold_rows * c * esz
+    assert plan.smem % 16 == 0 or c * esz % 16  # rows of whole vectors stay 16-byte aligned
+    if plan.hold_rows < plan.rows:  # a block takes every row that fits
+        assert plan.smem + c * esz > N._SMEM
+
+
+def test_norm_plan_at_the_unet_shapes():
+    """On 132 SMs at two blocks each: B=1 holds every row in shared memory
+    (the largest shape, (32², 64), on 263 blocks), small shapes take few
+    blocks (8192 elements or more each), and B=8 at (32², 64) holds 863 of
+    each block's 1242 rows (about 29 MB over the card) and reads the rest
+    twice."""
+    from cvpr23_lfdm_torch.scripts.bench_norm import NORM_SHAPES
+
+    for (h, c) in NORM_SHAPES:
+        plan = N.norm_plan(1, 40 * h * h, c, 8, 2, 8, 132, 2)
+        assert plan.hold_rows == plan.rows
+        assert plan.blocks == min(263 if (h, c) == (32, 64) else 264, -(-40 * h * h * c // 8192))
+    big = N.norm_plan(8, 40 * 32 * 32, 64, 8, 2, 8, 132, 2)
+    assert (big.blocks, big.rows, big.hold_rows) == (33, 1242, 863)
+    assert 8 * big.blocks * big.hold_rows * 64 * 2 > 29e6
+    with pytest.raises(ValueError, match="blocks the card holds"):
+        N.norm_plan(300, 64, 64, 8, 2, 8, 132, 2)
+
+
+@pytest.mark.parametrize("c,groups,esz,ptr,vec", [
+    (64, 8, 2, 0, 8), (64, 8, 4, 0, 4), (24, 4, 4, 0, 1), (24, 4, 2, 0, 1), (768, 8, 2, 0, 8),
+    (128, 8, 2, 2, 1), (128, 8, 4, 4, 1), (128, 8, 4, 16, 4), (32, 8, 2, 0, 1), (32, 8, 4, 0, 4)])
+def test_norm_vec_takes_the_path_by_shape_and_alignment(c, groups, esz, ptr, vec):
+    """16-byte vectors where C and C / groups are whole vectors and x
+    starts on 16 bytes (y always does); else the scalar path."""
+    assert N.norm_vec(c, groups, esz, ptr) == vec
+
+
+def test_bench_norm_reads_the_unet_shapes():
+    """`scripts/bench_norm.py` and `chip_smoke.py` read the Block shapes
+    from one table: 40 calls per eval; the script's arguments are laid out
+    as the bf16 UNet passes them; the launch gate they share; its reading
+    needs the card."""
+    import inspect
+
+    import chip_smoke
+    from cvpr23_lfdm_torch.scripts import bench_norm
+
+    assert sum(sum(v) for v in bench_norm.NORM_SHAPES.values()) == bench_norm.BLOCKS_PER_EVAL == 40
+    assert not hasattr(chip_smoke, "NORM_SHAPES")
+    assert "import NORM_SHAPES" in inspect.getsource(chip_smoke.check_new_kernels)
+    x, gamma, beta, scale, shift = bench_norm.make_args(2, 4, 16, True, "cpu")
+    assert x.dtype == scale.dtype == torch.bfloat16 and tuple(x.shape) == (2, bench_norm.F, 4, 4, 16)
+    assert not scale.is_contiguous() and scale.stride()[0] == 32 and shift.storage_offset() == 16
+    assert N.groupnorm_film_silu(x, gamma, beta, scale, shift).shape == x.shape
+    # the launch gate: the kernel alone, a count the profiler may have cut but not raised
+    assert bench_norm.one_launch(1, 0) and bench_norm.one_launch(0.9, 0)
+    assert bench_norm.one_launch(38.33, 0, 40) and bench_norm.one_launch(40, 0, 40)
+    assert not any((bench_norm.one_launch(0, 0), bench_norm.one_launch(2, 0),
+                    bench_norm.one_launch(1, 1), bench_norm.one_launch(40, 36, 40)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            bench_norm.run()
 
 
 @pytest.mark.cuda
