@@ -82,28 +82,49 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               difference; and the kernel step run twice gives bit-identical
               gradients.
 
-8. serving forms — the full MUG video (bf16, B=1) with
+8. lfae train — `LFAETrainer.train_step` (stage 1) at the MUG config's full
+              widths (128², 10 regions, fp32 with TF32 off, the recipe's
+              losses, scales and Adam) and the recipe's batch (B=100),
+              seeded weights (`seed_lfae_weights`, `seed_vgg_weights`) and a
+              seeded batch: two warm-up and five timed steps (median s per
+              step, frames/s, peak memory), the port's kernel launches of a
+              step (gated: none, the training path warps with `train_warp`),
+              the four losses of each step, gates on finite losses, every
+              parameter and every BatchNorm statistic moved, the step
+              counter; one step under torch.profiler (device busy, device
+              launches; `chip_smoke_out/profile_lfae_train.json`); the
+              training warp's two candidates at the step's shapes
+              (`scripts/bench_train_warp.py`: forward + backward ms each,
+              per call and per step); `reconstruct` (eval) on the same batch,
+              row 3's launches per call (gated: at least one) and its
+              prediction against the plain version's (a test hook swaps the
+              ops; gated at 1e-4); then one fp32 step at B=2 against the
+              JAX package's golden (`tests/golden/torch_port_lfae_step.npz`:
+              the train-mode forward's prediction, flow, occlusion and three
+              region-parameter sets, the losses of steps 1 and 2, with the
+              tolerances of `LFAE_GOLDEN_TOL`).
+9. serving forms — the full MUG video (bf16, B=1) with
               `temporal_attn_impl="pallas"` (100 packed-attention launches,
               no fused-layer launch, 3 warps; one more video under
               torch.profiler: device busy ms and the packed kernel's share)
               and with `"xla"` (no attention kernel at all): gates as in
               phase 3, frames/s.
-9. forms parity — `scripts/check_kernel_parity.py` in fp32 (TF32 off): the
+10. forms parity — `scripts/check_kernel_parity.py` in fp32 (TF32 off): the
               video under `xla`, `pallas` and `pallas3` on the same weights
               and noise, max-abs per output against `xla`, tolerance 5e-4.
-10. fused norm — `scripts/bench_unet.py`: one full-width UNet eval, bf16,
+11. fused norm — `scripts/bench_unet.py`: one full-width UNet eval, bf16,
               B=1 and B=8, `fused_norm=True` against `False`, read in turns:
               both times, the output difference, 40 launches per eval
               (gated), the norm kernel's device time in a profiled eval
               (gated: not 0), and every device launch of the eval's 40 norm
               calls, casts and copies included (the calls replayed under
               torch.profiler; gated: 40).
-11. ablate   — `scripts/bench_attn_ablate.py` at `[8, 40, 1024, 64]` bf16:
+12. ablate   — `scripts/bench_attn_ablate.py` at `[8, 40, 1024, 64]` bf16:
               ms per ablation build (eight stages, the last the cluster's
               sum of the partials) and `full - variant`; `full` is
               bit-equal to the serving kernel and held against the plain
               layer.
-12. bench warp — `scripts/bench_warp.py`: the decode-warp variants at
+13. bench warp — `scripts/bench_warp.py`: the decode-warp variants at
               `[8, 40, 128, 128, 67]` and `warp_video` / `F.grid_sample` /
               `warp_onehot` at every decode scale; its launch counts. Every
               folded warp+blend call of that run (`[320, s, s, C]`, blend
@@ -173,6 +194,25 @@ FUSED_NORM_BATCHES = (1, 8)
 FUSED_NORM_TOL = {"max_rel": 5e-2, "mean_rel": 1e-2}
 PATH_TOL = 2e-3    # fp32 serving path, kernels vs plain, max-abs
 GOLDEN_TOL = 5e-3  # fp32 serving path on the card vs the JAX package on a CPU
+# LFAE training at the MUG recipe's batch (`LFAETrainConfig.batch_size`);
+# the learning rate's milestones (epochs 60, 90) lie far past the phase's steps
+LFAE_BATCH = 100
+LFAE_STEPS_PER_EPOCH = 93
+LFAE_GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_lfae_step.npz")
+# fp32 step on the card vs the JAX package on a CPU (B=2), max-abs per
+# output and relative per loss. The port on a CPU reads 2.6e-3 (prediction),
+# 8.6e-4 (flow), 6e-5 (occlusion), 3e-5 (region parameters), 6e-6 (step-1
+# losses): convolutions summed in another order through ~40 layers, a
+# warp's output moving with its flow. Step 2 follows Adam's first update,
+# +-lr on every parameter by its gradient's sign, which the two frameworks
+# take apart on the ~1-2% of weights whose gradient is near 0; the
+# equivariance losses, which rest on the region predictor, move with them
+# (the CPU port: 14% and 6%; the total 0.3%)
+LFAE_GOLDEN_TOL = {"prediction": 1e-2, "optical_flow": 4e-3, "occlusion_map": 1e-3, "region": 1e-3,
+                   "step1_rel": 1e-4, "step2_rel": {"perceptual": 2e-2, "total": 2e-2,
+                                                    "equivariance_shift": 0.5,
+                                                    "equivariance_affine": 0.5}}
+RECON_TOL = 1e-4  # fp32 eval reconstruction, row 3 vs plain (bit-equal warps; other convs)
 
 
 def emit(obj) -> None:
@@ -956,6 +996,205 @@ def run_train_parity(failures: list) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- LFAE (stage-1) training
+
+
+def lfae_trainer(seed: int = 0):
+    """`LFAETrainer` at the MUG config's full widths (fp32), the three nets
+    from `seed_lfae_weights(seed)`, the VGG19 from `seed_vgg_weights(seed)`."""
+    from cvpr23_lfdm_torch.config import mug_config
+    from cvpr23_lfdm_torch.train.lfae_trainer import LFAETrainer
+
+    cfg = mug_config()
+    trainer = LFAETrainer(cfg, steps_per_epoch=LFAE_STEPS_PER_EPOCH, device="cuda", vgg_seed=seed)
+    return cfg, trainer, trainer.init_state(seed=seed)
+
+
+def lfae_batch(cfg, batch: int, seed: int) -> dict:
+    import torch
+
+    rng = np.random.RandomState(seed)
+    s = cfg.lfae.frame_shape
+    return {k: torch.from_numpy(rng.uniform(size=(batch, s, s, 3)).astype(np.float32)).cuda()
+            for k in ("source", "driving")}
+
+
+KERNEL_GROUPS = (  # (group, parts of device kernel names), first match wins
+    ("grid_sample", ("grid_sampler",)),
+    ("conv_gemm", ("xmma", "cudnn", "fft", "implicit_gemm", "region_transform", "gemm", "gemv",
+                   "dgrad", "wgrad", "cutlass", "flip_filter", "nchwToNhwc", "nhwcToNchw")),
+    ("adam", ("multi_tensor", "foreach", "adam")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copy", ("Memcpy", "Memset", "copy")),
+)
+
+
+def device_groups(rows) -> dict:
+    """Device ms and launches of a profile's device rows by kind of kernel
+    (`KERNEL_GROUPS`; `other` for the rest)."""
+    out = {}
+    for r in rows:
+        name = next((g for g, keys in KERNEL_GROUPS if any(k in r["name"] for k in keys)), "other")
+        entry = out.setdefault(name, {"device_ms": 0.0, "launches": 0})
+        entry["device_ms"] += r["device_ms"]
+        entry["launches"] += r["count"]
+    return out
+
+
+def run_lfae_train(failures: list) -> None:
+    """`LFAETrainer.train_step` at the recipe's batch: timed steps, gates,
+    a profiled step, the training warp's two candidates at the step's
+    shapes, then `reconstruct` (eval) on the same batch through row 3."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvpr23_lfdm_torch.scripts import bench_train_warp
+    from cvpr23_lfdm_torch.train.dm_trainer import step_generator
+
+    batch = LFAE_BATCH
+    cfg, trainer, state = lfae_trainer()
+    data = lfae_batch(cfg, batch, seed=1)
+    model = trainer.model
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, secs, launches = [], [], None
+    for i in range(7):  # 2 warm-up + 5 timed; the first timed step is the counted one
+        if i == 2:
+            reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, step_generator(0, state.step, trainer.device), data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i == 2:
+            launches = counters()
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i >= 2:
+            secs.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    unmoved = [n for n, p in model.named_parameters() if torch.equal(p.detach(), params0[n])]
+    stats_unmoved = [n for n, b in model.named_buffers() if torch.equal(b, stats0[n])]
+    checks = {
+        "finite": bool(np.isfinite([v for m in metrics for v in m.values()]).all()),
+        "every_parameter_moved": not unmoved,
+        "batch_stats_moved": not stats_unmoved,
+        "step_counter": state.step == 7,
+        # training warps by path: no forward-only kernel runs in a train step
+        "no_kernel_launch_in_train_mode": launches is not None and not any(launches.values()),
+    }
+    med = float(np.median(secs))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.train_step(state, step_generator(0, state.step, trainer.device), data)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = profile_rows(prof)
+    device = [r for r in rows if r["on_device"]]
+    busy = sum(r["device_ms"] for r in device)
+    os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chip_smoke_out", "profile_lfae_train.json"), "w") as f:
+        json.dump({"wall_ms": wall_ms, "device_busy_ms": busy, "all": rows}, f, indent=1)
+    emit({"phase": "lfae train", "config": "mug", "dtype": "float32 (TF32 off)", "batch": batch,
+          "frame": cfg.lfae.frame_shape, "regions": cfg.lfae.num_regions,
+          "lr": cfg.lfae_train.lr, "scales": list(cfg.lfae_train.scales), **checks,
+          "unmoved": unmoved[:5], "stats_unmoved": stats_unmoved[:5],
+          "kernel_launches_per_step": launches, "losses_7_steps": metrics,
+          "step_s": secs, "median_step_s": med, "frames_per_s": batch / med, "peak_mem_gb": peak,
+          "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy,
+                            "device_busy_share_of_its_wall": busy / wall_ms,
+                            "device_launches": sum(r["count"] for r in device),
+                            "by_group": device_groups(device), "top": device[:10]},
+          "gpu": gpu_line()})
+    for k, v in checks.items():
+        if not v:
+            failures.append(f"lfae train {k}")
+
+    # the differentiable warp's two candidates at the step's shapes (forward + backward)
+    total = {"plain": 0.0, "train_warp": 0.0}
+    for case in bench_train_warp.STEP_WARPS:
+        row = bench_train_warp.run_case(batch, case, torch.device("cuda"), iters=5)
+        for key in total:
+            total[key] += row.get(f"{key}_fwd_bwd_ms", row[f"{key}_fwd_ms"])
+        emit({"phase": "lfae train", "what": "training warp", **row})
+        torch.cuda.empty_cache()
+    emit({"phase": "lfae train", "what": "training warp per step (ms, CUDA events)", "batch": batch,
+          "per_step_ms": total, "used": "train_warp", "gpu": gpu_line()})
+
+    # eval reconstruction on the same batch: row 3 in the generator's decode
+    # and the pixelwise predictor's deformed source
+    reset_counters()
+    out = trainer.reconstruct(state, data["source"], data["driving"])
+    torch.cuda.synchronize()
+    rec_launches = counters()
+    with plain_ops():
+        plain = trainer.reconstruct(state, data["source"], data["driving"])
+    err = float((out["prediction"] - plain["prediction"]).abs().max())
+    rec_ms = median_ms(lambda: trainer.reconstruct(state, data["source"], data["driving"]), reps=5)
+    line = {"phase": "lfae train", "what": "reconstruct (eval) on the same batch", "batch": batch,
+            "warp_video_launches_per_call": rec_launches["warp_video"],
+            "launches": rec_launches, "prediction_max_abs_vs_plain": err, "tol": RECON_TOL,
+            "finite": torch_isfinite(out["prediction"]), "ms": rec_ms}
+    line["ok"] = bool(rec_launches["warp_video"] >= 1 and err <= RECON_TOL and line["finite"])
+    emit(line)
+    if not line["ok"]:
+        failures.append("lfae reconstruct")
+    del trainer, model, out, plain
+    torch.cuda.empty_cache()
+
+
+def run_lfae_parity(failures: list) -> None:
+    """One fp32 step (B=2, TF32 off) from the golden's seeded weights, batch
+    and TPS parameters, held against the JAX package's run of the same
+    (`tests/golden/torch_port_lfae_step.npz`): the train-mode forward's
+    prediction and region parameters, the losses of step 1 and of the
+    forward after one Adam update."""
+    import torch
+
+    from cvpr23_lfdm_torch.train.losses import TPSTransform
+
+    g = np.load(LFAE_GOLDEN)
+    cfg, trainer, state = lfae_trainer(seed=int(g["weight_seed"]))
+    cuda = lambda k: torch.from_numpy(g[k]).cuda()
+    data = {"source": cuda("source"), "driving": cuda("driving")}
+    transform = TPSTransform.from_params(cuda("theta"), cuda("control_params"),
+                                         cfg.lfae_train.points_tps)
+    trainer.model.train()
+    with torch.no_grad():
+        _, out = trainer.losses(None, data["source"], data["driving"], transform)
+        out["source_region_params"] = trainer.model.region_predictor(data["source"])
+    tol = LFAE_GOLDEN_TOL
+    got = {k: (out[k], tol[k]) for k in ("prediction", "optical_flow", "occlusion_map")}
+    for who in ("source", "driving", "transformed"):
+        for k in ("shift", "affine"):
+            got[f"{who}_{k}"] = (out[f"{who}_region_params"][k], tol["region"])
+    state, m1 = trainer.train_step(state, None, data, transform=transform)
+    state, m2 = trainer.train_step(state, None, data, transform=transform)
+    line = {"phase": "lfae train", "what": "fp32 step on the card vs the JAX golden", "batch": 2,
+            "tol": tol}
+    ok = True
+    for k, (v, atol) in got.items():
+        err = float(np.abs(v.cpu().numpy() - g[k]).max())
+        line[f"{k}_max_abs"] = err
+        ok &= err <= atol
+    for step, m in (("step1", m1), ("step2", m2)):
+        for k, v in m.items():
+            want = float(g[f"{step}_{k}"])
+            rel = abs(float(v) - want) / abs(want)
+            line[f"{step}_{k}"] = [float(v), want, rel]
+            ok &= rel <= (tol["step1_rel"] if step == "step1" else tol["step2_rel"][k])
+    line["ok"] = bool(ok)
+    emit(line)
+    if not ok:
+        failures.append("lfae parity vs JAX golden")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- UNet forms and bench scripts
 
 
@@ -1361,6 +1600,8 @@ def main() -> int:
     run_profile(latency_s)
     train_launches, step_s = run_training(failures)
     run_train_parity(failures)
+    run_lfae_train(failures)
+    run_lfae_parity(failures)
     pallas_launches, _ = run_serving(failures, impl="pallas", phase="serving forms", profiled=True)
     run_serving(failures, impl="xla", phase="serving forms")
     run_forms_parity(failures)

@@ -3,7 +3,8 @@
 
 Encoder over concat(source, driving), fp32 global mean pool of the coarsest
 scale, and an FC head initialised to the identity transform (zero kernel,
-identity bias). Eval mode only.
+identity bias). The module's `train`/`eval` mode is the JAX package's
+`train` argument (its BatchNorms).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ class BGMotionPredictor(nn.Module):
         nn.init.zeros_(self.fc.weight)
         with torch.no_grad():
             self.fc.bias.copy_(torch.tensor(_IDENTITY_BIAS[bg_type], dtype=torch.float32))
+        self.eval()  # the JAX `train=False` default
 
     def forward(self, source: torch.Tensor, driving: torch.Tensor) -> torch.Tensor:
         """`[B, H, W, 3]` x2 -> `[B, 3, 3]` transform (identity rows appended)."""

@@ -6,7 +6,11 @@ Parameters are named after the JAX package's variable paths so the weight
 bridge (`utils/bench_ckpt.py::from_jax_params`) is mechanical. Every layer
 takes a compute `dtype` (None: fp32, the promotion of fp32 parameters with
 the input): parameters stay fp32 and are cast at use, as flax does.
-BatchNorm is eval-mode only (serving), with fp32 statistics and output.
+BatchNorm follows the module's `train`/`eval` mode, the JAX package's
+`train` argument: batch statistics in train mode (as flax computes them),
+the running statistics in eval mode; fp32 statistics and output. It is
+built in eval mode, as are the LFAE modules, the JAX `train=False` default;
+`.train()` turns training on.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvpr23_lfdm_torch.ops import ties
 from cvpr23_lfdm_torch.ops.resize import avg_pool_2x2, upsample_nearest_2x
 
 
@@ -67,20 +72,38 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis (eps 1e-5), fp32 in and out."""
+    """BatchNorm over the last axis (eps 1e-5, momentum 0.9), fp32 in and
+    out, with flax's `nn.BatchNorm` statistics (`use_fast_variance`), not
+    torch's. In train mode it normalises with the batch mean and the
+    *biased* variance `max(0, E[x²] - E[x]²)` over every axis but the last,
+    and folds that same variance into `running_var` (`torch.nn.BatchNorm2d`
+    keeps the unbiased one there, N/(N-1) larger); the running statistics
+    move only in train mode, in fp32, outside the autograd graph. In eval
+    mode it normalises with the running statistics."""
 
-    def __init__(self, c: int, eps: float = 1e-5):
+    def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * inv + self.bias
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = ties.maximum(x.square().mean(dim=axes) - mean.square(), 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * inv + self.bias
 
 
 class SameBlock2d(nn.Module):

@@ -1,7 +1,7 @@
-"""The three stage-1 (LFAE) modules from a typed config, and their seeded
-initialisation (counterpart of `cvpr23_lfdm_tpu/models/flow_autoenc.py`:
-`build_lfae_modules`, `init_lfae_vars`). The composite `FlowAE` forward
-belongs to LFAE training and is not ported yet.
+"""The stage-1 (LFAE) model: the three modules from a typed config, their
+seeded initialisation and the composite `FlowAE` (counterpart of
+`cvpr23_lfdm_tpu/models/flow_autoenc.py`: `build_lfae_modules`,
+`init_lfae_vars`, `FlowAE`).
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from cvpr23_lfdm_torch.config import LFAEConfig
 from cvpr23_lfdm_torch.models.bg_predictor import BGMotionPredictor
@@ -72,3 +73,30 @@ def seed_lfae_weights(modules, seed: int) -> None:
                 fan_in = int(np.prod(p.shape[1:]))
                 vals = rng.standard_normal(tuple(p.shape)).astype(np.float32) / np.sqrt(fan_in)
                 p.copy_(torch.from_numpy(vals))
+
+
+class FlowAE(nn.Module):
+    """The composite stage-1 model: reconstructs the driving frame by warping
+    the reference frame (the reference's `FlowAE.forward`). Its submodules
+    `region_predictor`, `bg_predictor` and `generator` carry the JAX
+    package's names, so `from_jax_params` of a whole JAX LFAE tree (`params`
+    and `batch_stats`) loads into it. Built on the CPU in eval mode, with
+    fp32 parameters; `.to(device)` and `.train()` as any module."""
+
+    def __init__(self, cfg: LFAEConfig):
+        super().__init__()
+        self.region_predictor, self.bg_predictor, self.generator = build_lfae_modules(cfg)
+        self.eval()
+
+    def forward(self, ref_img: torch.Tensor, dri_img: torch.Tensor) -> dict:
+        """`ref_img`, `dri_img`: `[B, H, W, 3]` in [0, 1]. Returns the
+        generator's outputs (`prediction`, `deformed`, `optical_flow`,
+        `occlusion_map`, `bottle_neck_feat`) and `source_region_params`,
+        `driving_region_params`."""
+        source_params = self.region_predictor(ref_img)
+        driving_params = self.region_predictor(dri_img)
+        bg_params = self.bg_predictor(ref_img, dri_img)
+        generated = self.generator(ref_img, driving_params, source_params, bg_params)
+        generated["source_region_params"] = source_params
+        generated["driving_region_params"] = driving_params
+        return generated

@@ -1,5 +1,5 @@
 """Warping generator, the LFAE decoder (counterpart of
-`cvpr23_lfdm_tpu/models/generator.py`), eval mode.
+`cvpr23_lfdm_tpu/models/generator.py`).
 
 Serving entry points: `compute_fea` (encoder -> 1/4-res reference feature)
 and `decode_video_with_flow` (one encoder pass per video, then warps +
@@ -15,8 +15,12 @@ Warp plan (as `Generator._decode_warp_stack` in the JAX package):
 * the full-res skip and the source image are warped together;
 * `deformed` is fp32 in the final blend;
 * flow and occlusion are resized once per scale.
-Every warp is :func:`cvpr23_lfdm_torch.ops.warp.warp_video`, exact for
-any flow, at every scale.
+The module's `train`/`eval` mode is the JAX package's `train` argument, and
+it picks the warp by path, as the JAX generator does: in eval mode every
+warp is the kernel :func:`cvpr23_lfdm_torch.ops.warp.warp_video`, exact for
+any flow, at every scale (forward-only: it raises on a CUDA tensor when a
+gradient is asked for); in train mode (LFAE training) every warp is the
+differentiable :func:`cvpr23_lfdm_torch.ops.warp.train_warp`.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ class Generator(nn.Module):
         for i in range(num_bottleneck_blocks):
             setattr(self, f"bottleneck_r{i}", ResBlock2d(bottleneck_ch, 3, dtype=dtype))
         self.final = Conv2d(block_expansion, num_channels, 7, dtype=dtype)
+        self.eval()  # the JAX `train=False` default
 
     def _blocks(self, prefix: str, n: int):
         return [getattr(self, f"{prefix}{i}") for i in range(n)]
@@ -168,6 +173,10 @@ class Generator(nn.Module):
             """Sample the per-video source `[B, H, W, C]` at the per-frame
             grids of scale `res` -> `[B*F, H, W, C]`."""
             hh, ww, cc = src_b.shape[1:]
+            if self.training:
+                grid = prep(res)[0].reshape(b, f * hh, ww, 2)
+                out = warp_ops.train_warp(src_b, grid).to(src_b.dtype)
+                return out.reshape(b * f, hh, ww, cc)
             fl = prep(res)[0].float().reshape(b, f, hh, ww, 2).contiguous()
             return warp_ops.warp_video(src_b.contiguous(), fl).reshape(b * f, hh, ww, cc)
 

@@ -11,10 +11,13 @@ Pipeline at 1/4 resolution (32x32 for 128² input):
   4. hourglass -> fp32 softmax mask -> convex combination = dense flow;
   5. optional occlusion head (sigmoid).
 
-Outputs channel-last: flow `[B, h, w, 2]`, occlusion `[B, h, w, 1]`. Eval
-mode only. The sample of step 3 is the `warp_video` kernel on the card
-when no gradient is asked for (the frozen pseudo-ground-truth pass of DM
-training), and the differentiable plain `ops.warp.grid_sample` otherwise.
+Outputs channel-last: flow `[B, h, w, 2]`, occlusion `[B, h, w, 1]`. The
+module's `train`/`eval` mode is the JAX package's `train` argument (its
+BatchNorms), and it picks the sample of step 3 by path: in train mode (LFAE
+training) the differentiable `ops.warp.train_warp`; in eval mode (serving,
+the frozen pseudo-ground-truth pass of DM training, LFAE reconstruction)
+the `warp_video` kernel on the card, which is forward-only and raises when
+a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ class PixelwiseFlowPredictor(nn.Module):
         self.mask = Conv2d(self.hourglass.out_filters, kp1, 7)
         self.occlusion = (Conv2d(self.hourglass.out_filters, 1, 7)
                           if estimate_occlusion_map else None)
+        self.eval()  # the JAX `train=False` default
 
     def _heatmaps(self, spatial_size, driving_params, source_params):
         """Difference-of-gaussians region maps `[B, h, w, K+1]` (background
@@ -88,8 +92,8 @@ class PixelwiseFlowPredictor(nn.Module):
         b, h, w, c = source.shape
         bp, kp1 = sparse_motions.shape[:2]
         grids = sparse_motions.reshape(b, (bp // b) * kp1, h, w, 2)
-        if torch.is_grad_enabled() and (source.requires_grad or grids.requires_grad):
-            deformed = warp_ops.grid_sample(source, grids.reshape(b, -1, w, 2))
+        if self.training:
+            deformed = warp_ops.train_warp(source, grids.reshape(b, -1, w, 2))
         else:
             deformed = warp_ops.warp_video(source.contiguous(), grids.float().contiguous())
         return deformed.reshape(bp, kp1, h, w, c)

@@ -11,8 +11,10 @@ With `estimate_affine=True, pca_based=False` the regression branch is used
 instead: a 4-channel conv head (zero weights, identity bias) predicts a
 per-pixel jacobian that is heatmap-averaged into `affine`, and
 `covar = affine @ affine^T`. The `regions`/`jacobian` convs pad by `pad` (3
-for MUG; 0 for MHAD/NATOPS, where the heatmap shrinks by 6 pixels). Eval
-mode only (BatchNorm on running statistics); softmax and moments in fp32.
+for MUG; 0 for MHAD/NATOPS, where the heatmap shrinks by 6 pixels). The
+module's `train`/`eval` mode is the JAX package's `train` argument (its
+BatchNorms' batch or running statistics); softmax and moments in fp32, and
+differentiable through the soft-argmax, the covariance and `sqrt_psd_2x2`.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class RegionPredictor(nn.Module):
             nn.init.zeros_(self.jacobian.weight)
             with torch.no_grad():
                 self.jacobian.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 1.0]))
+        self.eval()  # the JAX `train=False` default
 
     def forward(self, image: torch.Tensor) -> dict:
         """image: `[B, H, W, 3]` in [0, 1]."""

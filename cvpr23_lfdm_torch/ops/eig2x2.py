@@ -6,11 +6,18 @@ The region predictor factorizes a per-region 2x2 covariance `C = U S U^T`
 device and fixes the column signs by a deterministic convention (each
 eigenvector's largest-magnitude component is non-negative), which
 `torch.linalg.eigh` would not reproduce.
+
+Where the JAX package takes `jnp.maximum`, this file takes `ops.ties.maximum`,
+which gives each side half the gradient at a tie as JAX does
+(`torch.clamp_min` gives all of it to one side), so gradients agree at
+degenerate covariances too.
 """
 
 from __future__ import annotations
 
 import torch
+
+from cvpr23_lfdm_torch.ops.ties import maximum
 
 _EPS = 1e-12
 
@@ -32,7 +39,7 @@ def eigh_2x2(covar: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     c = covar[..., 1, 1]
 
     half_tr = 0.5 * (a + c)
-    rad = torch.sqrt(torch.clamp_min(0.25 * (a - c) ** 2 + b * b, 0.0))
+    rad = torch.sqrt(maximum(0.25 * (a - c) ** 2 + b * b, 0.0))
     s1 = half_tr + rad
     s2 = half_tr - rad
 
@@ -46,7 +53,7 @@ def eigh_2x2(covar: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     e1 = torch.zeros_like(v1)
     e1[..., 0] = 1.0
     norm1 = torch.sqrt((v1 * v1).sum(dim=-1, keepdim=True))
-    v1 = torch.where(norm1 > _EPS, v1 / torch.clamp_min(norm1, _EPS), e1)
+    v1 = torch.where(norm1 > _EPS, v1 / maximum(norm1, _EPS), e1)
     v1 = v1 * _lead_sign(v1)
 
     v2 = torch.stack([-v1[..., 1], v1[..., 0]], dim=-1)
@@ -60,7 +67,7 @@ def eigh_2x2(covar: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def sqrt_psd_2x2(covar: torch.Tensor) -> torch.Tensor:
     """`U sqrt(S)` factor of a symmetric PSD 2x2: `out @ out.T == covar`."""
     u, s = eigh_2x2(covar)
-    return u * torch.sqrt(torch.clamp_min(s, 0.0))[..., None, :]
+    return u * torch.sqrt(maximum(s, 0.0))[..., None, :]
 
 
 def inv_2x2(m: torch.Tensor) -> torch.Tensor:

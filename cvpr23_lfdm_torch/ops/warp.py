@@ -4,9 +4,20 @@ one source per grid fused with an occlusion blend.
 Counterpart of `cvpr23_lfdm_tpu/ops/warp.py::grid_sample` (the plain
 version) and of the Pallas kernel `cvpr23_lfdm_tpu/ops/warp_pallas.py::
 warp_video_tiled` (`csrc/warp_blend.cu`). Semantics are those of
-`torch.nn.functional.grid_sample` with `align_corners=False`,
-`padding_mode='zeros'`, bilinear, grid last axis `(x, y)` in [-1, 1], in
-channel-last layout.
+`torch.nn.functional.grid_sample`, bilinear, grid last axis `(x, y)` in
+[-1, 1], in channel-last layout; the kernels take `align_corners=False`,
+`padding_mode='zeros'`, which is all the model's warps use.
+
+:func:`grid_sample` is the plain, differentiable version, and also takes the
+`border` and `reflection` padding modes and `align_corners` (the TPS warp of
+LFAE training samples with reflection padding). Its gradient is autograd's
+through the same arithmetic, which equals the JAX package's hand-written
+VJP (`_grid_sample_bwd`): the image's is a scatter of the four weighted
+corners, the grid's the bilinear weights' derivative chained through the
+coordinate transform, with JAX's gradients at the clip and reflection ties
+(`ops/ties.py`). :func:`train_warp` is the differentiable warp of the
+LFAE training path (:func:`torch.nn.functional.grid_sample`, zeros padding,
+on a channel-last view); see its docstring for why it is that one.
 
 The CUDA kernels. The TPU kernel samples through a one-hot matmul over a
 window of the source around each output tile, and a fit check sends any
@@ -45,23 +56,48 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
-from cvpr23_lfdm_torch.ops import _build
+from cvpr23_lfdm_torch.ops import _build, ties
 
 
-def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
+def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
+    if align_corners:
+        return (coord + 1.0) * 0.5 * (size - 1)
     return ((coord + 1.0) * size - 1.0) * 0.5
 
 
-def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def _reflect(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    span = hi - lo
+    t = torch.remainder(x - lo, 2.0 * span)
+    return span - ties.abs_(t - span) + lo
+
+
+def _resolve_coords(coord: torch.Tensor, size: int, align_corners: bool,
+                    padding_mode: str) -> torch.Tensor:
+    """Unnormalized coordinate after the padding mode's transform (before
+    the floor)."""
+    ix = _unnormalize(coord, size, align_corners)
+    if padding_mode == "reflection":
+        ix = _reflect(ix, 0.0, float(size - 1)) if align_corners else _reflect(ix, -0.5, size - 0.5)
+        ix = ties.clip(ix, 0.0, float(size - 1))
+    elif padding_mode == "border":
+        ix = ties.clip(ix, 0.0, float(size - 1))
+    return ix
+
+
+def grid_sample(image: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros",
+                align_corners: bool = False) -> torch.Tensor:
     """Plain bilinear sample of `image [B, H, W, C]` at `grid [B, Hg, Wg, 2]`
-    -> `[B, Hg, Wg, C]`. Weights and the sum are fp32; the result has the
-    image's dtype."""
+    -> `[B, Hg, Wg, C]`; `padding_mode` is `zeros`, `border` or `reflection`.
+    Weights and the sum are fp32; the result has the image's dtype."""
+    if padding_mode not in ("zeros", "border", "reflection"):
+        raise ValueError(f"grid_sample: unknown padding_mode {padding_mode!r}")
     b, h, w, c = image.shape
     gh, gw = grid.shape[1], grid.shape[2]
     g = grid.float().reshape(b, gh * gw, 2)
-    ix = _unnormalize(g[..., 0], w)
-    iy = _unnormalize(g[..., 1], h)
+    ix = _resolve_coords(g[..., 0], w, align_corners, padding_mode)
+    iy = _resolve_coords(g[..., 1], h, align_corners, padding_mode)
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     wx1 = ix - x0
@@ -79,6 +115,24 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
             vals = torch.gather(flat, 1, idx[..., None].expand(b, gh * gw, c))
             out += vals.float() * (wy * wx * valid)[..., None]
     return out.to(image.dtype).reshape(b, gh, gw, c)
+
+
+def train_warp(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The differentiable warp of the LFAE training path (the generator's
+    decode scales and the pixelwise flow predictor's deformed source, as the
+    JAX package warps with its XLA `grid_sample` whenever `train` is set):
+    `image [B, H, W, C]` at `grid [B, Hg, Wg, 2]`, zeros padding,
+    `align_corners=False`, fp32. It is one `F.grid_sample` call (one forward
+    and one backward kernel) on an NCHW view of the channel-last image: the
+    same function as :func:`grid_sample`, which launches a gather and a few
+    elementwise kernels per corner forward and a scatter per corner
+    backward, and took twice as long over the warps of a B=100 MUG step on
+    an H100 (`scripts/bench_train_warp.py`, `PERF.md`). Its backward, like
+    the plain version's, adds with atomics on a CUDA tensor, so a training
+    step is not bit-reproducible there."""
+    out = F.grid_sample(image.float().permute(0, 3, 1, 2), grid.float(), mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    return out.permute(0, 2, 3, 1)
 
 
 def warp_video_plain(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:

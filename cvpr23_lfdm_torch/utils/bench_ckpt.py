@@ -21,6 +21,14 @@ paths (`/` becomes `.`). Leaves map as:
 * BatchNorm/GroupNorm `scale` -> `weight`; `mean`/`var` ->
   `running_mean`/`running_var`; an `Embed` `embedding` -> `weight`;
   `bias` and `gamma` keep their names.
+
+That covers every leaf of the UNet, the whole LFAE tree (`FlowAE` and
+`LFAEReconstruction`: `params` and `batch_stats` of `region_predictor`,
+`bg_predictor` and `generator`), `AVDNetwork` (Dense and BatchNorm leaves)
+and `Vgg19Features` (`conv_{idx}`). :func:`to_jax_params` is the inverse
+for the modules without a deconv, 1x1x1 conv or embedding (the LFAE, the
+AVD network, the VGG): a state dict -> a JAX variable tree of numpy arrays,
+so that a JAX run can start from the port's seeded weights.
 """
 
 from __future__ import annotations
@@ -79,6 +87,38 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
         if col in tree:
             walk(tree[col], [])
     return out
+
+
+def to_jax_params(state: dict) -> dict:
+    """The JAX variable tree `{"params": ..., "batch_stats": ...}` (nested
+    dicts of fp32 numpy arrays) of a state dict of the LFAE, the AVD network
+    or the VGG: `weight` OIHW -> conv `kernel` HWIO, `weight` `[out, in]` ->
+    Dense `kernel` `[in, out]`, a 1-D `weight` -> `scale`, `running_mean` /
+    `running_var` -> `batch_stats` `mean` / `var`; `bias` keeps its name."""
+    tree = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        path = key.split(".")
+        a = value.detach().cpu().numpy().astype(np.float32) if torch.is_tensor(value) else (
+            np.asarray(value, np.float32))
+        col, name = "params", path[-1]
+        if name in ("running_mean", "running_var"):
+            col, name = "batch_stats", name.removeprefix("running_")
+        elif name == "weight":
+            if a.ndim == 4:
+                a, name = a.transpose(2, 3, 1, 0), "kernel"
+            elif a.ndim == 2:
+                a, name = a.T, "kernel"
+            elif a.ndim == 1:
+                name = "scale"
+            else:
+                raise ValueError(f"unexpected weight shape {a.shape} at {key}")
+        elif name != "bias":
+            raise ValueError(f"no JAX leaf for {key}")
+        node = tree[col]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(a)
+    return {col: sub for col, sub in tree.items() if sub}
 
 
 def lfae_subtree(lfae_vars: dict, name: str, with_flow_predictor: bool = True) -> dict:

@@ -15,6 +15,7 @@ import torch
 from cvpr23_lfdm_torch.ops import attention as A
 from cvpr23_lfdm_torch.ops import norm as N
 from cvpr23_lfdm_torch.ops import warp as W
+from cvpr23_lfdm_torch.scripts.bench_train_warp import STEP_WARPS, make_case
 
 TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -934,3 +935,68 @@ def test_ablated_temporal_layer_full_is_the_serving_kernel(dev):
         before[0], before[1] + 3)
     with pytest.raises(ValueError):
         A.fused_temporal_layer_ablated("kvbuild", *args)
+
+
+# ---------------------------------------------------------------- LFAE training
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in STEP_WARPS if c[5]], ids=lambda c: c[0])
+def test_train_warp_matches_plain_at_the_step_shapes(dev, case):
+    """The LFAE training path's differentiable warp (`train_warp`, one
+    `F.grid_sample`) against the plain `grid_sample` at each warp of a MUG
+    training step (B=4), forward and both gradients. Forward 1e-5 (fp32,
+    four weighted corners); gradients 1e-4 of their largest value (both add
+    with atomics in another order; the grid's sums over C channels)."""
+    name, image_shape, grid_shape, image_grad, _, _ = case
+    image, grid = make_case(4, image_shape, grid_shape, dev)
+    cot = torch.randn(4, *grid_shape, image_shape[2], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    results = []
+    for fn in (W.train_warp, W.grid_sample):
+        img = image.clone().requires_grad_(image_grad)
+        g = grid.clone().requires_grad_()
+        out = fn(img, g)
+        out.backward(cot)
+        results.append([out.detach(), g.grad] + ([img.grad] if image_grad else []))
+    torch.testing.assert_close(results[0][0], results[1][0], atol=1e-5, rtol=0)
+    for got, want in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+def _tiny_lfae_cfg():
+    from cvpr23_lfdm_torch import config as C
+
+    narrow = dict(block_expansion=8, max_features=32)
+    lfae = C.LFAEConfig(
+        frame_shape=32, num_regions=4,
+        region_predictor=C.RegionPredictorConfig(num_regions=4, num_blocks=2, **narrow),
+        bg_predictor=C.BGPredictorConfig(num_blocks=2, **narrow),
+        generator=C.GeneratorConfig(num_bottleneck_blocks=1, **narrow,
+                                    pixelwise_flow=C.PixelwiseFlowConfig(num_blocks=2, **narrow)))
+    return C.ExperimentConfig(lfae=lfae, lfae_train=C.LFAETrainConfig(scales=(1.0, 0.5)))
+
+
+@pytest.mark.cuda
+def test_lfae_reconstruct_runs_row3_and_train_step_runs_none(dev, monkeypatch):
+    """`LFAETrainer.reconstruct` (eval) launches the decode warp (row 3) four
+    times (three decode scales, the deformed source) and matches the plain
+    warps' reconstruction within 1e-4 (fp32, TF32 off: row 3 is bit-equal to
+    plain; the convolutions are the same calls); a `train_step` launches no
+    kernel of the port and has finite losses."""
+    from cvpr23_lfdm_torch.train.dm_trainer import step_generator
+    from cvpr23_lfdm_torch.train.lfae_trainer import LFAETrainer
+
+    trainer = LFAETrainer(_tiny_lfae_cfg(), steps_per_epoch=10, device=dev)
+    state = trainer.init_state(seed=0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {k: torch.rand(2, 32, 32, 3, generator=g, device=dev) for k in ("source", "driving")}
+    before = W.warp_video.launches
+    state, m = trainer.train_step(state, step_generator(0, 0, dev), batch)
+    assert W.warp_video.launches == before
+    assert all(torch.isfinite(v) for v in m.values())
+    out = trainer.reconstruct(state, batch["source"], batch["driving"])
+    assert W.warp_video.launches == before + 4
+    monkeypatch.setattr(W, "warp_video", W.warp_video_plain)
+    plain = trainer.reconstruct(state, batch["source"], batch["driving"])
+    torch.testing.assert_close(out["prediction"], plain["prediction"], atol=1e-4, rtol=0)
