@@ -30,11 +30,12 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               whichever is larger). The temporal layer also with its
               device time alone per call (torch.profiler, one kernel per
               call) and, in both dtypes and the focus case, run twice for
-              bit-identity; the linear layer likewise (two kernels per
+              bit-identity, each case also on inputs whose attention
+              branch is O(1) and residual small (x / 16, W_out * 3), so
+              that the gate holds the branch (`branch_max_abs_err`,
+              `branch_rms`); the linear layer likewise (two kernels per
               call), and at HW = 48 and 100 (short last tiles, off the
-              path), each also on inputs whose attention branch is O(1)
-              and residual small, so that the gate holds the branch
-              (`branch_max_abs_err`, `branch_rms`). Likewise the packed attention at the
+              path), each also on its `branch` inputs. Likewise the packed attention at the
               four B=1 serving shapes and a focus case (library: SDPA on
               pre-permuted q, k, v; device times alone of both; run twice
               for bit-identity), the fused GroupNorm+FiLM+SiLU at every
@@ -134,6 +135,30 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               the device times alone of the kernel and of `F.grid_sample`):
               the totals of `warp_onehot` and `warp_gather` in the
               `kernels` line.
+14. resume  — train -> `CheckpointManager.save` -> a new trainer restored
+              from it -> resume. DM at the MUG widths, B=5, fp32 (TF32 off,
+              cuDNN deterministic): 2 steps straight through against 1 step
+              + save + restore + 1 step on the same batch and draws; gated:
+              every UNet parameter and Adam moment `torch.equal`, equal
+              steps. LFAE at the MUG widths, the `lfae train` phase's weights
+              and B=100 batch, fp32: the same, gated finite and at
+              `LFAE_RESUME_TOL` (the training warp's backward adds with
+              atomics). Bytes, save and restore seconds of each.
+15. lfae eval — `eval/flowautoenc.py::evaluate`, the reference protocol (10
+              videos x 40 frames per batch, 128², `frame_chunk` 8, MUG
+              widths, seeded weights, 20 smooth seeded videos): out_loss,
+              warp_loss, s per batch, frames/s, peak memory, row 3's launches
+              (gated: 4 per `FlowAE` call x 5 chunks = 20 per batch, no other
+              kernel), and the same evaluation with the plain warp (gated:
+              1e-5 relative).
+16. metrics — I3D (features, FVD) and LPIPS on the committed fixture weights
+              against `tests/golden/metrics_golden.npz` at the JAX tests'
+              tolerances (gated); then at the published scale, seeded
+              weights (not comparable with published numbers): 16 real and
+              16 fake videos, 40 x 128² resized to 224², FVD, cFVD, sFVD (4
+              class / 4 subject groups), LPIPS, SSIM and PSNR over their
+              frames, seconds and videos/s each, peak memory; gated: finite,
+              |FVD(real, real)| <= 1e-5 FVD(real, fake).
 
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
@@ -213,6 +238,26 @@ LFAE_GOLDEN_TOL = {"prediction": 1e-2, "optical_flow": 4e-3, "occlusion_map": 1e
                                                     "equivariance_shift": 0.5,
                                                     "equivariance_affine": 0.5}}
 RECON_TOL = 1e-4  # fp32 eval reconstruction, row 3 vs plain (bit-equal warps; other convs)
+# LFAE resume on the card: two runs of the same steps part where the training
+# warp's atomics round a gradient otherwise. Adam (betas 0.5, 0.999) moves a
+# parameter by at most 1.06 lr a step, so two runs whose gradient signs differ
+# part by at most 2.12 lr per step (2 steps); most entries move together
+RESUME_LFAE_BATCH = LFAE_BATCH
+LFAE_RESUME_TOL = {"param_max_abs": 2.12 * 2e-4 * 2, "param_share_over_1e-5": 0.01,
+                   "batch_stats_max_rel": 1e-2}  # stats: |diff| / (1 + |value|)
+# the LFAE eval: the reference protocol (10 videos x 40 frames per batch, 128²,
+# frame_chunk 8) over two batches; row 3 is bit-equal to plain, the other
+# convolutions the same calls: the summed L1 losses within 1e-5 relative
+EVAL_VIDEOS, EVAL_BATCH, EVAL_CHUNK = 20, 10, 8
+EVAL_PLAIN_TOL = 1e-5
+# the metrics: goldens at the JAX tests' tolerances (tests/test_metrics.py)
+METRICS_GOLDEN = os.path.join(ROOT, "tests", "golden", "metrics_golden.npz")
+METRICS_GOLDEN_TOL = {"i3d_feats": {"rtol": 1e-3, "atol": 0.5}, "i3d_fvd_rtol": 1e-2,
+                      "lpips": {"rtol": 1e-4, "atol": 1e-6}}
+# published scale: 16 + 16 videos, 4 groups; FVD(real, real) is 0 up to
+# scipy's sqrtm of a rank-15 covariance (~2e-7 of the trace on a CPU)
+METRIC_VIDEOS, METRIC_GROUPS, METRIC_FRAME = 16, 4, 128
+FVD_SELF_EPS = 1e-5  # |FVD(real, real)| <= eps * FVD(real, fake)
 
 
 def emit(obj) -> None:
@@ -316,6 +361,19 @@ def _record(totals, failures, name, shape, dname, res, weight, times=None, nbyte
     emit(line)
 
 
+def temporal_branch_check(A, args, x, wout, tol) -> tuple[dict, float]:
+    """Row 1 again on inputs whose attention branch is O(1): with unit inputs
+    the branch's rms is ~0.34 against the residual's 1, ten times the bf16
+    gate's atol at most; x / 16 (the LayerNorm does not see the scale) and
+    W_out * 3 make it ~1.0 and the residual ~0.06, so that the gate holds
+    the branch itself, as row 2's `branch` inputs do. Returns the comparison
+    and the branch's rms (gated at ten times the atol or more)."""
+    bargs = ((x.float() / 16).to(x.dtype), *args[1:3], (3 * wout.float()).to(wout.dtype), *args[4:])
+    bref = A.fused_temporal_layer_plain(*bargs)
+    rms = float((bref.float() - bargs[0].float()).pow(2).mean().sqrt())
+    return compare(A.fused_temporal_layer(*bargs), bref, tol), rms
+
+
 def check_kernels(failures: list) -> dict:
     """Each kernel against its plain version at every serving shape; returns
     per-kernel totals over the calls of one video (bf16 times)."""
@@ -351,7 +409,9 @@ def check_kernels(failures: list) -> dict:
             out = call()
             res = compare(out, A.fused_temporal_layer_plain(*args), TOL[dname])
             same = bool(torch.equal(out, call()))  # no atomics: the same bits when run again
-            res["ok"] = res["ok"] and same
+            branch, branch_rms = temporal_branch_check(A, args, x, wout, TOL[dname])
+            res["ok"] = res["ok"] and same and branch["ok"] and branch["finite"] \
+                and branch_rms >= 10 * TOL[dname]["atol"]
             times = None
             if timed:
                 times = {"kernel_ms": median_ms(call),
@@ -363,6 +423,7 @@ def check_kernels(failures: list) -> dict:
             flops = 2 * F_FRAMES * hw * c * 4 * hd + 4 * hw * HEADS * F_FRAMES * F_FRAMES * DH
             record("fused_temporal_layer", [1, F_FRAMES, hw, c], dname, res,
                    n_eval * DDIM_STEPS, times, nbytes, flops, bit_identical_twice=same,
+                   branch_max_abs_err=branch["max_abs_err"], branch_rms=branch_rms,
                    **({"device_launches_per_call": 1} if timed else {}))
         # focus-present rows (not on the serving path): B=2, one entry focused
         c, hw = 64, 256
@@ -376,9 +437,11 @@ def check_kernels(failures: list) -> dict:
         out = A.fused_temporal_layer(*args)
         res = compare(out, A.fused_temporal_layer_plain(*args), TOL[dname])
         same = bool(torch.equal(out, A.fused_temporal_layer(*args)))
-        res["ok"] = res["ok"] and same
+        branch, branch_rms = temporal_branch_check(A, args, x, wout, TOL[dname])
+        res["ok"] = res["ok"] and same and branch["ok"] and branch["finite"] \
+            and branch_rms >= 10 * TOL[dname]["atol"]
         record("fused_temporal_layer", [2, F_FRAMES, hw, c, "focus"], dname, res, 0,
-               bit_identical_twice=same)
+               bit_identical_twice=same, branch_max_abs_err=branch["max_abs_err"], branch_rms=branch_rms)
 
         # the serving shapes, then HW = 48 and 100 (off the path: short last tiles)
         for (c, n), n_eval in [*LINEAR_SHAPES.items(), ((64, 48), 0), ((128, 100), 0)]:
@@ -1195,6 +1258,359 @@ def run_lfae_parity(failures: list) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phases 14-16: resume, eval, metrics
+
+
+def save_and_restore(ckpt, trainer, state, fresh):
+    """`CheckpointManager.save` of `trainer`'s state (step snapshot + rolling
+    latest), then `restore` into the new trainer `fresh` on the card; the
+    seconds of each and the bytes on disk."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(trainer.state_dict(state), step=state.step)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = fresh.load_state_dict(ckpt.restore(map_location=fresh.device))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    return restored, {"save_s": save_s, "restore_s": restore_s, "file_bytes": os.path.getsize(path)}
+
+
+def run_resume(failures: list) -> None:
+    """Train -> checkpoint -> resume on the card. DM (MUG widths, B=5, fp32,
+    TF32 off, cuDNN deterministic): 2 steps straight through against 1 step,
+    `CheckpointManager.save`, a new `DMTrainer` restored from it and 1 more
+    step, on the same batch and draws: every UNet parameter and Adam moment
+    equal (`torch.equal`) and equal steps. LFAE (MUG widths, the `lfae
+    train` phase's weights and B=100 batch, fp32): the same experiment, held
+    to `LFAE_RESUME_TOL`, because the training warp's backward adds with
+    atomics; every parameter and statistic finite."""
+    import tempfile
+
+    import torch
+
+    from cvpr23_lfdm_torch.train.dm_trainer import step_generator
+    from cvpr23_lfdm_torch.train.lfae_trainer import LFAETrainer
+    from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lfdm_resume_", dir=os.path.join(ROOT, "chip_smoke_out"))
+    try:
+        cfg, trainer, data, draws, _ = training_setup("float32", TRAIN_BATCH)
+        initial = {k: v.detach().clone() for k, v in trainer.model.unet.state_dict().items()}
+        state = trainer.init_state()
+        for _ in range(2):
+            state, _ = trainer.train_step(state, None, data, **draws)
+        straight = {k: v.detach().clone() for k, v in trainer.state_dict(state)["unet"].items()}
+        straight_opt = trainer.optimizer.state_dict()["state"]
+        straight_opt = {i: {k: v.clone() for k, v in s.items()} for i, s in straight_opt.items()}
+        trainer.model.unet.load_state_dict(initial)
+        state = trainer.init_state()
+        state, _ = trainer.train_step(state, None, data, **draws)
+        ckpt = CheckpointManager(os.path.join(tmp, "dm"))
+        _, fresh, _, _, _ = training_setup("float32", TRAIN_BATCH)
+        fresh.init_state(seed=7)  # other UNet weights: the restore must replace them
+        state, io = save_and_restore(ckpt, trainer, state, fresh)
+        del trainer
+        torch.cuda.empty_cache()
+        state, _ = fresh.train_step(state, None, data, **draws)
+        got = fresh.state_dict(state)
+        params_equal = all(torch.equal(got["unet"][k], v) for k, v in straight.items())
+        moments = got["optimizer"]["state"]
+        moments_equal = set(moments) == set(straight_opt) and all(
+            torch.equal(moments[i][k], straight_opt[i][k]) for i in straight_opt
+            for k in ("exp_avg", "exp_avg_sq", "step"))
+        line = {"phase": "resume", "what": "DM train -> checkpoint -> new trainer -> resume",
+                "config": "mug", "dtype": "float32 (TF32 off, cuDNN deterministic)",
+                "batch": TRAIN_BATCH, "steps": "2 straight vs 1 + save + restore + 1",
+                "step": state.step, **io,
+                "unet_parameters_equal": params_equal, "adam_moments_equal": moments_equal}
+        line["ok"] = bool(params_equal and moments_equal and state.step == 2)
+        emit({**line, "gpu": gpu_line()})
+        if not line["ok"]:
+            failures.append("resume dm")
+        del fresh, got, straight, straight_opt, initial
+        torch.cuda.empty_cache()
+
+        cfg, trainer, state = lfae_trainer()  # the `lfae train` phase's weights and batch
+        data = lfae_batch(cfg, RESUME_LFAE_BATCH, seed=1)
+        initial = {k: v.detach().clone() for k, v in trainer.state_dict(state)["model"].items()}
+        for i in range(2):
+            state, _ = trainer.train_step(state, step_generator(0, i, trainer.device), data)
+        straight = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        trainer.model.load_state_dict(initial)
+        state = trainer.init_state()
+        state, _ = trainer.train_step(state, step_generator(0, 0, trainer.device), data)
+        fresh = LFAETrainer(cfg, steps_per_epoch=LFAE_STEPS_PER_EPOCH, device="cuda", vgg_seed=0)
+        fresh.init_state(seed=5)  # other weights: the restore must replace them
+        ckpt = CheckpointManager(os.path.join(tmp, "lfae"))
+        state, io = save_and_restore(ckpt, trainer, state, fresh)
+        del trainer
+        torch.cuda.empty_cache()
+        state, _ = fresh.train_step(state, step_generator(0, 1, fresh.device), data)
+        got = fresh.model.state_dict()
+        tol = LFAE_RESUME_TOL
+        param_names = {n for n, _ in fresh.model.named_parameters()}
+        finite = all(bool(torch.isfinite(t).all()) for t in (*got.values(), *straight.values()))
+        p_diff = torch.cat([(got[k] - v).abs().flatten() for k, v in straight.items() if k in param_names])
+        s_rel = max(float(((got[k] - v).abs() / (1 + v.abs())).max())
+                    for k, v in straight.items() if k not in param_names)
+        line = {"phase": "resume", "what": "LFAE train -> checkpoint -> new trainer -> resume",
+                "config": "mug", "dtype": "float32 (TF32 off)", "batch": RESUME_LFAE_BATCH,
+                "steps": "2 straight vs 1 + save + restore + 1", "step": state.step,
+                **io, "tol": tol,
+                "param_max_abs_diff": float(p_diff.max()),
+                "param_share_over_1e-5": float((p_diff > 1e-5).float().mean()),
+                "param_entries_equal_share": float((p_diff == 0).float().mean()),
+                "batch_stats_max_rel_diff": s_rel, "finite": finite}
+        line["ok"] = bool(finite and state.step == 2 and line["param_max_abs_diff"] <= tol["param_max_abs"]
+                          and line["param_share_over_1e-5"] <= tol["param_share_over_1e-5"]
+                          and s_rel <= tol["batch_stats_max_rel"])
+        emit({**line, "gpu": gpu_line()})
+        if not line["ok"]:
+            failures.append("resume lfae")
+        del fresh, got, straight, initial
+        torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def smooth_videos(n: int, f: int, s: int, seed: int) -> np.ndarray:
+    """Seeded smooth videos `[n, f, s, s, 3]` in [0, 1]: an 8x8 colour field
+    per video, moving a little from frame to frame, bilinearly upsampled."""
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(seed)
+    coarse = rng.uniform(0.1, 0.9, size=(n, 1, 8, 8, 3)) + 0.05 * rng.standard_normal((n, f, 8, 8, 3))
+    x = torch.from_numpy(coarse.astype(np.float32)).reshape(n * f, 8, 8, 3).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(s, s), mode="bilinear", align_corners=False)
+    return x.permute(0, 2, 3, 1).reshape(n, f, s, s, 3).clamp(0, 1).contiguous().numpy()
+
+
+class VideoSet:
+    """An in-memory dataset: `[i] -> {"video": [F, H, W, 3], "name"}`."""
+
+    def __init__(self, videos: np.ndarray):
+        self.videos = videos
+
+    def __len__(self) -> int:
+        return len(self.videos)
+
+    def __getitem__(self, i: int) -> dict:
+        return {"video": self.videos[i], "name": f"v{i:02d}"}
+
+
+def run_lfae_eval(failures: list) -> None:
+    """`eval/flowautoenc.py::evaluate`, the reference protocol: MUG widths,
+    128², 40 frames, batch 10 videos, `frame_chunk` 8, seeded LFAE weights,
+    `EVAL_VIDEOS` smooth seeded videos; after one warm-up batch: the losses,
+    s per batch, frames/s, peak memory and row 3's launches (counters set to
+    0 just before, read just after; 4 per `FlowAE` call x 5 chunks per
+    batch). Then the same evaluation with the plain warp swapped in (the test
+    hook), within `EVAL_PLAIN_TOL` relative."""
+    import torch
+
+    from cvpr23_lfdm_torch.config import mug_config
+    from cvpr23_lfdm_torch.eval.flowautoenc import evaluate
+    from cvpr23_lfdm_torch.models.flow_autoenc import FlowAE, seed_lfae_weights
+
+    cfg = mug_config().lfae
+    fae = FlowAE(cfg)
+    seed_lfae_weights([fae.region_predictor, fae.bg_predictor, fae.generator], 0)
+    state = fae.state_dict()
+    videos = smooth_videos(EVAL_VIDEOS, F_FRAMES, cfg.frame_shape, seed=4)
+    kw = dict(batch_size=EVAL_BATCH, image_size=cfg.frame_shape, frame_chunk=EVAL_CHUNK)
+    evaluate(state, cfg, VideoSet(videos[:EVAL_BATCH]), **kw)  # warm-up
+    batches = -(-EVAL_VIDEOS // EVAL_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = evaluate(state, cfg, VideoSet(videos), **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_ops():
+        plain = evaluate(state, cfg, VideoSet(videos), **kw)
+    rel = max(abs(res[k] - plain[k]) / abs(plain[k]) for k in res)
+    want = 4 * -(-F_FRAMES // EVAL_CHUNK) * batches
+    others = {k: v for k, v in launches.items() if k != "warp_video" and v}
+    line = {"phase": "lfae eval", "config": "mug", "dtype": "float32 (TF32 off)",
+            "videos": EVAL_VIDEOS, "frames": F_FRAMES, "frame": cfg.frame_shape,
+            "batch": EVAL_BATCH, "frame_chunk": EVAL_CHUNK, "weights": "seeded (seed_lfae_weights(0))",
+            **res, "plain_warp": plain, "max_rel_diff_vs_plain": rel, "tol": EVAL_PLAIN_TOL,
+            "s": secs, "s_per_batch": secs / batches, "frames_per_s": EVAL_VIDEOS * F_FRAMES / secs,
+            "peak_mem_gb": peak, "warp_video_launches": launches["warp_video"],
+            "warp_video_launches_per_batch": launches["warp_video"] / batches,
+            "warp_video_launches_expected": want, "other_kernel_launches": others}
+    line["ok"] = bool(np.isfinite(list(res.values())).all() and launches["warp_video"] == want
+                      and not others and rel <= EVAL_PLAIN_TOL)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("lfae eval")
+    del fae
+    torch.cuda.empty_cache()
+
+
+# numpy builders of the metric goldens' weights and inputs, draw for draw those
+# of tests/metrics_fixtures.py, which reaches the JAX package for its channel
+# table (tests/test_torch_eval.py holds the two equal)
+LPIPS_VGG_PLAN = {
+    0: (3, 64), 2: (64, 64), 5: (64, 128), 7: (128, 128),
+    10: (128, 256), 12: (256, 256), 14: (256, 256),
+    17: (256, 512), 19: (512, 512), 21: (512, 512),
+    24: (512, 512), 26: (512, 512), 28: (512, 512),
+}
+
+
+def _unit3d_sd(rng, prefix, cin, cout, k, bn=True, bias=False) -> dict:
+    sd = {f"{prefix}.conv3d.weight": rng.standard_normal((cout, cin, k, k, k)).astype("float32") * 0.1}
+    if bias:
+        sd[f"{prefix}.conv3d.bias"] = rng.standard_normal(cout).astype("float32")
+    if bn:
+        sd[f"{prefix}.bn.weight"] = 1.0 + 0.1 * rng.standard_normal(cout).astype("float32")
+        sd[f"{prefix}.bn.bias"] = 0.1 * rng.standard_normal(cout).astype("float32")
+        sd[f"{prefix}.bn.running_mean"] = 0.1 * rng.standard_normal(cout).astype("float32")
+        sd[f"{prefix}.bn.running_var"] = (1.0 + 0.1 * rng.random(cout)).astype("float32")
+    return sd
+
+
+def i3d_fixture_sd(seed: int = 0) -> dict:
+    """The golden's pytorch_i3d-layout state dict (numpy leaves)."""
+    from cvpr23_lfdm_torch.eval.i3d import _MIXED
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    sd.update(_unit3d_sd(rng, "Conv3d_1a_7x7", 3, 64, 7))
+    sd.update(_unit3d_sd(rng, "Conv3d_2b_1x1", 64, 64, 1))
+    sd.update(_unit3d_sd(rng, "Conv3d_2c_3x3", 64, 192, 3))
+    cin = 192
+    for name, c in _MIXED:
+        sd.update(_unit3d_sd(rng, f"{name}.b0", cin, c[0], 1))
+        sd.update(_unit3d_sd(rng, f"{name}.b1a", cin, c[1], 1))
+        sd.update(_unit3d_sd(rng, f"{name}.b1b", c[1], c[2], 3))
+        sd.update(_unit3d_sd(rng, f"{name}.b2a", cin, c[3], 1))
+        sd.update(_unit3d_sd(rng, f"{name}.b2b", c[3], c[4], 3))
+        sd.update(_unit3d_sd(rng, f"{name}.b3b", cin, c[5], 1))
+        cin = c[0] + c[2] + c[4] + c[5]
+    sd.update(_unit3d_sd(rng, "logits", cin, 400, 1, bn=False, bias=True))
+    return sd
+
+
+def lpips_fixture_sds(seed: int = 2):
+    """The golden's (vgg16 features sd, lin sd, a, b)."""
+    from cvpr23_lfdm_torch.eval.lpips import LPIPS_CHANNELS
+
+    rng = np.random.default_rng(seed)
+    feat_sd = {}
+    for idx, (cin, cout) in LPIPS_VGG_PLAN.items():
+        feat_sd[f"{idx}.weight"] = rng.standard_normal((cout, cin, 3, 3)).astype("float32") * 0.05
+        feat_sd[f"{idx}.bias"] = 0.1 * rng.standard_normal(cout).astype("float32")
+    lin_sd = {f"lin{i}.model.1.weight": rng.random((1, c, 1, 1)).astype("float32")
+              for i, c in enumerate(LPIPS_CHANNELS)}
+    a = rng.random((2, 32, 32, 3)).astype(np.float32)
+    b = rng.random((2, 32, 32, 3)).astype(np.float32)
+    return feat_sd, lin_sd, a, b
+
+
+def golden_i3d_inputs():
+    rng = np.random.default_rng(7)
+    real = rng.random((4, 9, 32, 32, 3)).astype(np.float32)
+    fake = (rng.random((4, 9, 32, 32, 3)).astype(np.float32)) ** 2
+    return real, fake
+
+
+def timed(fn):
+    """`(fn(), seconds)`, host clock ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_metrics(failures: list) -> None:
+    """The metrics on the card. Goldens: I3D features and FVD, and LPIPS, on
+    the fixture weights and inputs against `tests/golden/metrics_golden.npz`
+    at the JAX tests' tolerances (`METRICS_GOLDEN_TOL`). At the published
+    scale: `METRIC_VIDEOS` real and as many fake smooth seeded videos, 40 x
+    128², resized to 224² through the full seeded I3D: FVD, cFVD and sFVD
+    (4 class and 4 subject groups) and FVD(real, real); LPIPS (seeded VGG16),
+    SSIM and PSNR over their frames; seconds and videos/s each, peak memory.
+    Seeded weights: the values are not comparable with published ones."""
+    import torch
+
+    from cvpr23_lfdm_torch.eval import i3d, lpips, metrics
+
+    golden = np.load(METRICS_GOLDEN)
+    tol = METRICS_GOLDEN_TOL
+    extract = i3d.i3d_extractor(i3d.convert_i3d_checkpoint(i3d_fixture_sd()), resize_to=None)
+    real, fake = golden_i3d_inputs()
+    feats = extract(real).cpu().numpy()
+    fvd = metrics.FVD(extract)(real, fake)
+    feat_sd, lin_sd, a, b = lpips_fixture_sds()
+    lp = lpips.make_lpips(lpips.convert_vgg16_features(feat_sd), lpips.convert_lpips_lin(lin_sd))(a, b)
+    lp = lp.cpu().numpy()
+    want_fvd = float(golden["i3d_fvd"])
+    line = {"phase": "metrics", "what": "goldens (tests/golden/metrics_golden.npz)", "tol": tol,
+            "i3d_feats_max_abs_err": float(np.abs(feats - golden["i3d_feats_real"]).max()),
+            "i3d_fvd": [fvd, want_fvd], "lpips": [lp.tolist(), golden["lpips_vals"].tolist()]}
+    line["ok"] = bool(
+        np.allclose(feats, golden["i3d_feats_real"], **tol["i3d_feats"])
+        and abs(fvd - want_fvd) <= tol["i3d_fvd_rtol"] * abs(want_fvd)
+        and np.allclose(lp, golden["lpips_vals"], **tol["lpips"]))
+    emit(line)
+    if not line["ok"]:
+        failures.append("metrics goldens")
+
+    n, g = METRIC_VIDEOS, METRIC_GROUPS
+    s = METRIC_FRAME
+    real = torch.from_numpy(smooth_videos(n, F_FRAMES, s, seed=5)).cuda()
+    fake = torch.from_numpy(smooth_videos(n, F_FRAMES, s, seed=6)).cuda()
+    classes = [f"class{i % g}" for i in range(n)]
+    subjects = [f"subject{i // (n // g)}" for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fvd = metrics.FVD(i3d.i3d_extractor(i3d.random_i3d_vars(0)))
+    rf, rf_s = timed(lambda: fvd(real, fake))
+    (cfvd, per_class), c_s = timed(lambda: fvd.grouped(real, fake, classes, classes))
+    (sfvd, per_subject), s_s = timed(lambda: fvd.grouped(real, fake, subjects, subjects[::-1]))
+    rr, _ = timed(lambda: fvd(real, real))
+    lp_fn = lpips.random_lpips_for_testing(0)
+    ra, fa = real.reshape(-1, s, s, 3), fake.reshape(-1, s, s, 3)
+    lp, lp_s = timed(lambda: torch.cat([lp_fn(ra[i: i + 64], fa[i: i + 64]) for i in range(0, len(ra), 64)]))
+    ss, ss_s = timed(lambda: float(metrics.ssim(real, fake)))
+    ps, ps_s = timed(lambda: float(metrics.psnr(real, fake)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    values = {"fvd": rf, "cfvd": cfvd, "sfvd": sfvd, "fvd_real_real": rr,
+              "lpips_mean": float(lp.mean()), "ssim": ss, "psnr": ps}
+    line = {"phase": "metrics", "what": "published scale, seeded weights: not comparable with published numbers",
+            "videos": [n, n], "frames": F_FRAMES, "frame": s, "i3d_input": 224, "groups": g, **values,
+            "per_class": per_class, "per_subject": per_subject, "fvd_self_eps": FVD_SELF_EPS,
+            "seconds": {"fvd": rf_s, "cfvd": c_s, "sfvd": s_s, "lpips": lp_s, "ssim": ss_s, "psnr": ps_s},
+            "videos_per_s": {"fvd": 2 * n / rf_s, "cfvd": 2 * n / c_s, "sfvd": 2 * n / s_s,
+                             "lpips": n / lp_s, "ssim": n / ss_s, "psnr": n / ps_s},
+            "lpips_frames": len(ra), "peak_mem_gb": peak}
+    line["ok"] = bool(np.isfinite(list(values.values())).all()
+                      and abs(rr) <= FVD_SELF_EPS * rf and rf > 0)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("metrics published scale")
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- UNet forms and bench scripts
 
 
@@ -1602,6 +2018,9 @@ def main() -> int:
     run_train_parity(failures)
     run_lfae_train(failures)
     run_lfae_parity(failures)
+    run_resume(failures)
+    run_lfae_eval(failures)
+    run_metrics(failures)
     pallas_launches, _ = run_serving(failures, impl="pallas", phase="serving forms", profiled=True)
     run_serving(failures, impl="xla", phase="serving forms")
     run_forms_parity(failures)

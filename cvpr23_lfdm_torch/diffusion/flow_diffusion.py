@@ -87,6 +87,16 @@ class FlowDiffusion(nn.Module):
         self.requires_grad_(False)
         self.unet.requires_grad_(training)
 
+    def train(self, mode: bool = True) -> "FlowDiffusion":
+        """The UNet follows `mode`; the frozen LFAE stays in eval mode (its
+        running statistics and the decode warp), as the JAX package computes
+        the pseudo-ground truth with `train=False`."""
+        super().train(mode)
+        for name in ("region_predictor", "bg_predictor", "generator"):
+            if hasattr(self, name):
+                getattr(self, name).eval()
+        return self
+
     def load_jax_variables(self, unet_vars: dict, lfae_vars: dict) -> None:
         """Load the JAX package's variable trees (numpy leaves): the UNet's
         `{"params": ...}` and the LFAE's `{"params"|"batch_stats":

@@ -79,6 +79,25 @@ class DMTrainer:
         self._new_optimizer()
         return DMTrainState(step=0)
 
+    # ------------------------------------------------------------ checkpoint
+
+    def state_dict(self, state: DMTrainState) -> dict:
+        """What a resumed run needs (the counterpart of the JAX package's
+        `DMTrainState`): the step, the UNet and the Adam moments. The frozen
+        LFAE is not in it; a resumed run loads it again from its own source."""
+        return {"step": state.step, "unet": self.model.unet.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, saved: dict) -> DMTrainState:
+        """Restore a :meth:`state_dict` (e.g. `CheckpointManager.restore(...,
+        map_location=trainer.device)`): the UNet, then a new optimizer over
+        its parameters, then the saved moments into it, in that order (a new
+        optimizer made after the load would start Adam afresh)."""
+        self.model.unet.load_state_dict(saved["unet"])
+        self._new_optimizer()
+        self.optimizer.load_state_dict(saved["optimizer"])
+        return DMTrainState(step=int(saved["step"]))
+
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items() if v is not None}
 

@@ -103,6 +103,23 @@ class LFAETrainer:
         self._new_optimizer()
         return LFAETrainState(step=0)
 
+    # ------------------------------------------------------------ checkpoint
+
+    def state_dict(self, state: LFAETrainState) -> dict:
+        """What a resumed run needs: the step, the three nets' parameters
+        and BatchNorm statistics, and the Adam moments (the VGG19 is fixed and
+        seeded apart)."""
+        return {"step": state.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, saved: dict) -> LFAETrainState:
+        """Restore a :meth:`state_dict`: the nets, then a new optimizer over
+        their parameters, then the saved moments into it."""
+        self.model.load_state_dict(saved["model"])
+        self._new_optimizer()
+        self.optimizer.load_state_dict(saved["optimizer"])
+        return LFAETrainState(step=int(saved["step"]))
+
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(batch[k]).to(self.device, torch.float32)
                 for k in ("source", "driving")}

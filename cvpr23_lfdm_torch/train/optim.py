@@ -47,4 +47,9 @@ class MultistepAdam:
         return self.adam.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state)
+        """Load saved moments. The per-parameter `step` counters go to the
+        CPU, where a fresh `torch.optim.Adam` keeps them (`torch.optim`
+        leaves them on whatever device the state was restored to)."""
+        per_param = {i: {k: v.cpu() if k == "step" else v for k, v in s.items()}
+                     for i, s in state["state"].items()}
+        self.adam.load_state_dict({**state, "state": per_param})

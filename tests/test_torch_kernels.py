@@ -57,20 +57,52 @@ _TEMPORAL_CASES = [(64, 256, False, 40, 8), (512, 16, False, 40, 8), (128, 64, T
 def test_fused_temporal_layer_kernel(dev, dtype, c, hw, focus, f, heads):
     """Kernel against the plain layer, and the same bits when run twice (no
     atomics: the bf16 cluster sums its blocks' partials in rank order)."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    b, hd = 2, heads * 32
-    x = torch.randn(b, f, hw, c, generator=g, device=dev).to(dtype)
-    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
-    wqkv = (torch.randn(c, 3 * hd, generator=g, device=dev) / c ** 0.5).to(dtype)
-    wout = (torch.randn(hd, c, generator=g, device=dev) / hd ** 0.5).to(dtype)
-    mask = torch.tensor([True, False], device=dev) if focus else None
-    bias = A.build_bias_flat(torch.randn(heads, f, f, generator=g, device=dev), b, f, mask)
-    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, dtype, dev)
-    args = (x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32)
+    args = _temporal_args(dev, dtype, 2, f, hw, c, heads, focus, seed=0)
     before = A.fused_temporal_layer.launches
     out = A.fused_temporal_layer(*args)
     assert A.fused_temporal_layer.launches == before + 1
     _close(out, A.fused_temporal_layer_plain(*args), dtype)
+    assert torch.equal(out, A.fused_temporal_layer(*args))
+
+
+def _temporal_args(dev, dtype, b, f, hw, c, heads, focus, seed, branch=False):
+    """Seeded layer arguments. With unit inputs the attention branch has rms
+    ~0.34 against the residual's 1, about ten times the bf16 gate's atol.
+    `branch` makes it O(1) and the residual small, as row 2's
+    `_linear_args` does: x / 16 (the LayerNorm does not see the scale) and
+    W_out * 3 (branch rms ~1.0, residual ~0.06)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = heads * 32
+    xs, ws = (1 / 16, 3.0) if branch else (1.0, 1.0)
+    x = (xs * torch.randn(b, f, hw, c, generator=g, device=dev)).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    wqkv = (torch.randn(c, 3 * hd, generator=g, device=dev) / c ** 0.5).to(dtype)
+    wout = (ws * torch.randn(hd, c, generator=g, device=dev) / hd ** 0.5).to(dtype)
+    mask = torch.tensor([True, False], device=dev) if focus else None
+    bias = A.build_bias_flat(torch.randn(heads, f, f, generator=g, device=dev), b, f, mask)
+    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, dtype, dev)
+    return (x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32)
+
+
+def _close_temporal_branch(out, args, dtype):
+    """`out` against the plain layer, after checking that the attention
+    branch (plain - x) is ten times the gate's atol or more."""
+    ref = A.fused_temporal_layer_plain(*args)
+    rms = float((ref.float() - args[0].float()).pow(2).mean().sqrt())
+    assert rms >= 10 * TOL[dtype][0], rms
+    _close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c,hw,focus,f,heads",
+                         [(d, *case) for case in _TEMPORAL_CASES for d in DTYPES]
+                         + [(torch.bfloat16, 512, 6, False, 64, 8)])
+def test_fused_temporal_layer_kernel_on_branch_inputs(dev, dtype, c, hw, focus, f, heads):
+    """Every case of `test_fused_temporal_layer_kernel` again on inputs whose
+    attention branch is O(1), so that the gate holds the branch itself."""
+    args = _temporal_args(dev, dtype, 2, f, hw, c, heads, focus, seed=0, branch=True)
+    out = A.fused_temporal_layer(*args)
+    _close_temporal_branch(out, args, dtype)
     assert torch.equal(out, A.fused_temporal_layer(*args))
 
 
@@ -80,23 +112,19 @@ def test_fused_temporal_layer_kernel(dev, dtype, c, hw, focus, f, heads):
 def test_fused_temporal_layer_kernel_at_every_cluster_size(dev, monkeypatch, heads, k, focus):
     """The bf16 kernel under a cluster size forced through the plan: one head
     per block (K = heads) or several, K = 3 (uneven column slices of the
-    reduction); against the plain layer, and the same bits twice."""
+    reduction); against the plain layer, and the same bits twice, with unit
+    inputs and with an O(1) attention branch."""
     import functools
 
     monkeypatch.setattr(A, "temporal_layer_plan", functools.partial(A.temporal_layer_plan, cluster=k))
-    g = torch.Generator(device=dev).manual_seed(9)
-    b, f, hw, c, hd = 2, 40, 24, 128, heads * 32
-    x = torch.randn(b, f, hw, c, generator=g, device=dev).bfloat16()
-    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
-    wqkv = (torch.randn(c, 3 * hd, generator=g, device=dev) / c ** 0.5).bfloat16()
-    wout = (torch.randn(hd, c, generator=g, device=dev) / hd ** 0.5).bfloat16()
-    mask = torch.tensor([True, False], device=dev) if focus else None
-    bias = A.build_bias_flat(torch.randn(heads, f, f, generator=g, device=dev), b, f, mask)
-    cos_t, sin_t = A.rotary_tables(f, heads, 32, 32 ** -0.5, torch.bfloat16, dev)
-    args = (x, gamma, wqkv, wout, bias, cos_t, sin_t, heads, 32)
+    args = _temporal_args(dev, torch.bfloat16, 2, 40, 24, 128, heads, focus, seed=9)
     out = A.fused_temporal_layer(*args)
     _close(out, A.fused_temporal_layer_plain(*args), torch.bfloat16)
     assert torch.equal(out, A.fused_temporal_layer(*args))
+    bargs = _temporal_args(dev, torch.bfloat16, 2, 40, 24, 128, heads, focus, seed=9, branch=True)
+    out = A.fused_temporal_layer(*bargs)
+    _close_temporal_branch(out, bargs, torch.bfloat16)
+    assert torch.equal(out, A.fused_temporal_layer(*bargs))
 
 
 @pytest.mark.cuda

@@ -191,7 +191,9 @@ def test_port_imports_no_jax():
                 "scripts/check_kernel_parity.py", "scripts/bench_temporal_layer.py",
                 "scripts/bench_train_warp.py", "ops/ties.py", "models/avd_network.py",
                 "models/flow_autoenc.py", "train/vgg.py", "train/losses.py",
-                "train/lfae_trainer.py", "utils/bench_ckpt.py"):
+                "train/lfae_trainer.py", "utils/bench_ckpt.py", "utils/checkpoint.py",
+                "utils/torch_convert.py", "data/loader.py", "utils/viz.py", "eval/metrics.py",
+                "eval/lpips.py", "eval/i3d.py", "eval/flowautoenc.py", "scripts/probe_lfae_nan.py"):
         assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:
