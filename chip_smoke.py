@@ -159,6 +159,28 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               class / 4 subject groups), LPIPS, SSIM and PSNR over their
               frames, seconds and videos/s each, peak memory; gated: finite,
               |FVD(real, real)| <= 1e-5 FVD(real, fake).
+17. text    — the user entry points, in one scratch directory: a
+              seeded HF checkpoint at `bert-base-cased` widths (12 x 768,
+              vocab 28996 holding the class words), `TextEmbedder.build`
+              for MUG, MHAD and NATOPS on the card and on the CPU (fp32,
+              TF32 off; gated at `TEXT_TOL`), seconds per table, peak
+              memory.
+18. cli demo — `python -m cvpr23_lfdm_torch.scripts.demo --bert-path ...`
+              in a subprocess (bench checkpoint, bundled PNG, 7 classes;
+              gated: exit 0, 7 GIF89a files); `demo.run` in process for
+              `DEMO_CLASSES` (gated: 100 / 80 / 3 launches of rows 1-3 per
+              class video, `out_vid` equal to a direct `sample_video` with
+              the same generator); seconds per class video and per direct
+              `sample_video`.
+19. cli test_dm — `test_dm.main(["--synthetic", "--num-videos", "4",
+              "--random-metric-weights", "--bench-ckpt", ...])` (gated:
+              finite losses, PSNR, SSIM, LPIPS, FVD, cFVD, sFVD; 110 / 88 /
+              10 launches per video).
+20. cli eval_flowautoenc — on the same synthetic corpus (gated: finite
+              losses, 20 row-3 launches per batch).
+21. interpolate — `GaussianDiffusion.interpolate` on the bench checkpoint:
+              bf16 at t = 20 (finite, 10 / 8 launches per step), fp32 at t
+              = 3 against the plain versions within `PATH_TOL`.
 
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
@@ -1959,6 +1981,309 @@ def run_bench_warp(failures: list) -> dict:
     return launches
 
 
+# ------------------------------------------------------- the user entry points
+
+TEXT_TOL = 1e-4  # BERT class tables, the card's fp32 (TF32 off) against the CPU's
+DEMO_CLASSES = ("anger", "happiness")  # the in-process demo run (the subprocess runs all 7)
+DM_TEST_VIDEOS = 4
+INTERP_T, INTERP_PARITY_T = 20, 3
+# per video of `test_dm`: the sampled video's 10 UNet evals and 3 decode warps,
+# and `loss`'s one UNet eval, pseudo-ground-truth decode (4) and x0 decode (3)
+DM_TEST_LAUNCHES = {"fused_temporal_layer": 10 * (DDIM_STEPS + 1),
+                    "fused_spatial_linear_layer": 8 * (DDIM_STEPS + 1), "warp_video": 10}
+
+
+def hf_bert_state(spec, seed: int) -> dict:
+    """Seeded weights of a `BertModel` under the HF names (kernels N(0,
+    1/fan_in), LayerNorm scales 1 + N(0, 0.01), biases N(0, 0.01))."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h, i = spec.hidden_size, spec.intermediate_size
+    dense = lambda o, k: torch.randn(o, k, generator=g) / k ** 0.5  # noqa: E731
+    small = lambda n: 0.1 * torch.randn(n, generator=g)  # noqa: E731
+
+    def ln(p):
+        return {p + ".weight": 1 + small(h), p + ".bias": small(h)}
+
+    sd = {"embeddings.word_embeddings.weight": dense(spec.vocab_size, h),
+          "embeddings.position_embeddings.weight": dense(spec.max_position_embeddings, h),
+          "embeddings.token_type_embeddings.weight": dense(spec.type_vocab_size, h),
+          **ln("embeddings.LayerNorm")}
+    for n in range(spec.num_layers):
+        p = f"encoder.layer.{n}."
+        for name, (o, k) in {"attention.self.query": (h, h), "attention.self.key": (h, h),
+                             "attention.self.value": (h, h), "attention.output.dense": (h, h),
+                             "intermediate.dense": (i, h), "output.dense": (h, i)}.items():
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = dense(o, k), small(o)
+        sd.update(ln(p + "attention.output.LayerNorm"))
+        sd.update(ln(p + "output.LayerNorm"))
+    return sd
+
+
+def write_bert_checkpoint(path: str, seed: int = 0) -> None:
+    """A seeded HF checkpoint directory at `bert-base-cased` widths:
+    `config.json`, `vocab.txt` (28996 entries: the special tokens, every word
+    and punctuation mark of the three datasets' class texts, then fillers)
+    and `model.safetensors`."""
+    from cvpr23_lfdm_torch.models.bert import BertSpec
+    from cvpr23_lfdm_torch.models.text import DATASET_CLASSES
+    from cvpr23_lfdm_torch.utils.safetensors import save_file
+
+    spec = BertSpec()
+    words = sorted({w for classes in DATASET_CLASSES.values() for t in classes
+                    for w in t.replace("(", " ( ").replace(")", " ) ").split()})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    vocab += [f"[unused{k}]" for k in range(spec.vocab_size - len(vocab))]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"vocab_size": spec.vocab_size, "hidden_size": spec.hidden_size,
+                   "num_hidden_layers": spec.num_layers, "num_attention_heads": spec.num_heads,
+                   "intermediate_size": spec.intermediate_size,
+                   "max_position_embeddings": spec.max_position_embeddings,
+                   "type_vocab_size": spec.type_vocab_size, "layer_norm_eps": spec.layer_norm_eps}, f)
+    save_file(hf_bert_state(spec, seed), os.path.join(path, "model.safetensors"))
+
+
+def run_text(failures: list, work: str) -> str:
+    """`TextEmbedder.build` for MUG, MHAD and NATOPS at `bert-base-cased`
+    widths from a seeded HF directory, on the card and on the CPU (fp32, TF32
+    off), within `TEXT_TOL`; seconds per table and peak memory. Returns the
+    checkpoint directory."""
+    import torch
+
+    from cvpr23_lfdm_torch.models import text as T
+
+    bert = os.path.join(work, "bert")
+    _, write_s = timed(lambda: write_bert_checkpoint(bert))
+    saved = T._CACHE_DIR
+    try:
+        for dataset in ("mug", "mhad", "natops"):
+            T._CACHE_DIR = os.path.join(work, "cache_cuda")
+            torch.cuda.reset_peak_memory_stats()
+            card, card_s = timed(lambda: T.TextEmbedder.build(dataset, model_name_or_path=bert))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            T._CACHE_DIR = os.path.join(work, "cache_cpu")
+            cpu, cpu_s = timed(lambda: T.TextEmbedder.build(dataset, model_name_or_path=bert, device="cpu"))
+            err = float(np.abs(card.table - cpu.table).max())
+            line = {"phase": "text", "dataset": dataset, "classes": len(card.classes),
+                    "table": list(card.table.shape), "dtype": "float32 (TF32 off)",
+                    "weights": "seeded, bert-base-cased widths (12 x 768, vocab 28996)",
+                    "checkpoint_write_s": write_s, "card_s_per_table": card_s, "cpu_s_per_table": cpu_s,
+                    "peak_mem_gb": peak, "max_abs_card_vs_cpu": err, "tol": TEXT_TOL,
+                    "ok": bool(np.isfinite(card.table).all() and err <= TEXT_TOL)}
+            emit({**line, "gpu": gpu_line()})
+            if not line["ok"]:
+                failures.append(f"text {dataset}")
+    finally:
+        T._CACHE_DIR = saved
+    return bert
+
+
+def run_cli_demo(failures: list, work: str, bert: str) -> None:
+    """`python -m cvpr23_lfdm_torch.scripts.demo` in a subprocess on the bench
+    checkpoint, the bundled PNG and the seeded BERT (all 7 MUG classes; gated:
+    exit 0, one GIF89a per class); then `demo.run` in this process for
+    `DEMO_CLASSES`, the launch counters set to 0 just before and read just
+    after (gated: 100 / 80 / 3 per class video), and its `out_vid` against a
+    direct `sample_video` with the same generator (gated: torch.equal, cuDNN
+    deterministic), whose time is the class video's time without the host's
+    panels and GIF."""
+    import torch
+
+    from cvpr23_lfdm_torch.models import text as T
+    from cvpr23_lfdm_torch.scripts import demo
+    from cvpr23_lfdm_torch.scripts._common import load_text_embedder
+
+    log = os.path.join(work, "demo_cli")
+    cache = T.TextEmbedder.cache_path("mug")
+    had_cache = os.path.exists(cache)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "cvpr23_lfdm_torch.scripts.demo", "--bert-path", bert,
+                               "--log-dir", log], cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": ROOT})
+    finally:
+        if not had_cache and os.path.exists(cache):  # the CLI caches the table in assets/
+            os.remove(cache)
+    secs = time.perf_counter() - t0
+    gif_dir = os.path.join(log, "demo")
+    gifs = sorted(os.listdir(gif_dir)) if os.path.isdir(gif_dir) else []
+    heads = []
+    for g in gifs:
+        with open(os.path.join(gif_dir, g), "rb") as f:
+            heads.append(f.read(6) == b"GIF89a")
+    line = {"phase": "cli demo", "how": "subprocess, 7 MUG classes", "exit": proc.returncode,
+            "gifs": gifs, "gif_bytes": sum(os.path.getsize(os.path.join(gif_dir, g)) for g in gifs),
+            "s": secs, "stdout_tail": proc.stdout.strip().splitlines()[-2:],
+            "stderr_tail": proc.stderr.strip().splitlines()[-3:] if proc.returncode else []}
+    line["ok"] = proc.returncode == 0 and len(gifs) == 7 and all(heads)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli demo subprocess")
+
+    saved = T._CACHE_DIR, torch.backends.cudnn.deterministic
+    T._CACHE_DIR, torch.backends.cudnn.deterministic = os.path.join(work, "cache_demo"), True
+    try:
+        args = demo.parser().parse_args(["--bert-path", bert, "--log-dir", os.path.join(work, "demo_run"),
+                                         "--classes", *DEMO_CLASSES])
+        cfg = demo.build_config(args)
+        demo.run(cfg, args)  # warm-up; builds the table
+        torch.cuda.synchronize()
+        reset_counters()
+        res, secs = timed(lambda: demo.run(cfg, args))
+        launches = counters()
+        n = len(DEMO_CLASSES)
+        want = {"fused_temporal_layer": 10 * DDIM_STEPS * n, "fused_spatial_linear_layer": 8 * DDIM_STEPS * n,
+                "warp_video": 3 * n}
+        _, model = demo.build_model(cfg, args)
+        ref = torch.from_numpy(demo.reference_image(args, cfg.lfae.frame_shape))[None].cuda()
+        table = load_text_embedder(args)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        equal, diff, sample_s = True, 0.0, 0.0
+        for text in DEMO_CLASSES:
+            cond = torch.from_numpy(table([text])[0]).cuda()
+            direct, s_video = timed(lambda: model.sample_video(ref, cond, args.cond_scale, generator=gen))
+            direct, sample_s = direct["out_vid"].float().cpu(), sample_s + s_video
+            got = torch.from_numpy(res["outputs"][text]["out_vid"])
+            equal &= torch.equal(got, direct)
+            diff = max(diff, float((got - direct).abs().max()))
+        finite = all(np.isfinite(v).all() for o in res["outputs"].values() for v in o.values())
+        line = {"phase": "cli demo", "how": f"demo.run in process, classes {list(DEMO_CLASSES)}",
+                "launches": {k: launches[k] for k in want}, "launches_expected": want,
+                "other_kernel_launches": {k: v for k, v in launches.items() if k not in want and v},
+                "s": secs, "s_per_class_video": secs / n, "sample_video_s_per_video": sample_s / n,
+                "out_vid_equal_direct": equal,
+                "out_vid_max_abs_vs_direct": diff, "finite": finite}
+        line["ok"] = bool(equal and finite and not line["other_kernel_launches"]
+                          and all(launches[k] == v for k, v in want.items()))
+        emit({**line, "gpu": gpu_line()})
+        if not line["ok"]:
+            failures.append("cli demo in process")
+        del model
+    finally:
+        T._CACHE_DIR, torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+
+
+def run_cli_eval(failures: list, work: str) -> None:
+    """`test_dm --synthetic --num-videos 4 --random-metric-weights
+    --bench-ckpt assets/bench_ckpt` and `eval_flowautoenc --synthetic` in this
+    process through their `main(argv)`, the launch counters set to 0 just
+    before each and read just after. Gated: returned without an exit,
+    finite metrics, rows 1-3 launched `DM_TEST_LAUNCHES` per video; the
+    eval's losses finite and 20 row-3 launches per batch."""
+    import torch
+
+    from cvpr23_lfdm_torch.data import DMVideoDataset, get_spec
+    from cvpr23_lfdm_torch.scripts import eval_flowautoenc, test_dm
+
+    root = os.path.join(work, "corpus")
+    argv = ["--synthetic", "--data-root", root, "--num-videos", str(DM_TEST_VIDEOS), "--random-metric-weights",
+            "--bench-ckpt", os.path.join(ROOT, "assets", "bench_ckpt"), "--log-dir", os.path.join(work, "dm")]
+    reset_counters()
+    try:
+        res, secs = timed(lambda: test_dm.main(argv))
+    except SystemExit as e:
+        res, secs = {"exit": str(e)}, 0.0
+    launches = counters()
+    want = {k: v * DM_TEST_VIDEOS for k, v in DM_TEST_LAUNCHES.items()}
+    keys = ("rec_loss", "warp_loss", "psnr", "ssim", "lpips", "fvd", "cfvd", "sfvd")
+    finite = all(k in res and np.isfinite(res[k]) for k in keys)
+    line = {"phase": "cli test_dm", "argv": argv, **res, "launches": {k: launches[k] for k in want},
+            "launches_expected": want, "s": secs, "s_per_video_setup_included": secs / DM_TEST_VIDEOS,
+            "finite": finite, "weights": "bench checkpoint (region/bg predictors seeded); seeded I3D, LPIPS"}
+    line["ok"] = bool(finite and all(launches[k] == v for k, v in want.items()))
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli test_dm")
+    torch.cuda.empty_cache()
+
+    argv = ["--synthetic", "--data-root", root, "--log-dir", os.path.join(work, "eval")]
+    videos = len(DMVideoDataset(get_spec("mug"), root, "test"))
+    batches = -(-videos // 10)
+    reset_counters()
+    try:
+        res, secs = timed(lambda: eval_flowautoenc.main(argv))
+    except SystemExit as e:
+        res, secs = {"exit": str(e)}, 0.0
+    launches = counters()
+    want = 4 * -(-F_FRAMES // 8) * batches  # 4 per FlowAE call x 5 chunks of 8 frames
+    finite = all(k in res and np.isfinite(res[k]) for k in ("out_loss", "warp_loss"))
+    line = {"phase": "cli eval_flowautoenc", "argv": argv, **res, "videos": videos, "batches": batches,
+            "warp_video_launches": launches["warp_video"], "warp_video_launches_expected": want,
+            "s": secs, "s_per_batch": secs / batches, "weights": "seeded (seed_lfae_weights(0))",
+            "finite": finite}
+    line["ok"] = bool(finite and launches["warp_video"] == want)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli eval_flowautoenc")
+    torch.cuda.empty_cache()
+
+
+def run_interpolate(failures: list) -> None:
+    """`GaussianDiffusion.interpolate` at MUG width on the bench checkpoint:
+    bf16, t = `INTERP_T`, two seeded latent volumes, finite, rows 1 and 2
+    launched 10 and 8 per step (counters set to 0 just before, read just
+    after); then fp32 at t = `INTERP_PARITY_T` with injected noise, the
+    kernels against the plain versions (the test hook) within `PATH_TOL`."""
+    import torch
+
+    for dtype, t in (("bfloat16", INTERP_T), ("float32", INTERP_PARITY_T)):
+        cfg, model, cond, ref, _ = serving_model(dtype)
+        d = cfg.diffusion
+        shape = (1, d.num_frames, d.img_size, d.img_size, 3)
+        rng = np.random.RandomState(9)
+        draws = [torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).cuda() for _ in range(2)]
+        noise = [torch.from_numpy(rng.standard_normal((k,) + shape).astype(np.float32)).cuda() for k in (1, 1, t)]
+
+        def interp():
+            with torch.no_grad():
+                fea = model.generator.compute_fea(ref)
+                return model.diffusion.interpolate(model.denoise, draws[0], draws[1], fea, cond, 1.0, t=t,
+                                                   lam=0.5, noise1=noise[0][0], noise2=noise[1][0],
+                                                   noise_seq=noise[2])
+
+        interp()  # warm-up
+        reset_counters()
+        out, secs = timed(interp)
+        launches = counters()
+        want = {"fused_temporal_layer": 10 * t, "fused_spatial_linear_layer": 8 * t}
+        line = {"phase": "interpolate", "dtype": dtype, "t": t, "shape": list(out.shape),
+                "finite": torch_isfinite(out), "launches": {k: launches[k] for k in want},
+                "launches_expected": want, "s": secs}
+        ok = line["finite"] and all(launches[k] == v for k, v in want.items())
+        if dtype == "float32":
+            with plain_ops():
+                plain = interp()
+            line["max_abs_vs_plain"] = float((out - plain).abs().max())
+            line["tol"] = PATH_TOL
+            ok = ok and line["max_abs_vs_plain"] <= PATH_TOL
+        line["ok"] = bool(ok)
+        emit({**line, "gpu": gpu_line()})
+        if not ok:
+            failures.append(f"interpolate {dtype}")
+        del model
+        torch.cuda.empty_cache()
+
+
+def run_entry_points(failures: list) -> None:
+    """The phases of the user entry points, in one scratch directory."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        bert = run_text(failures, work)
+        run_cli_demo(failures, work, bert)
+        run_cli_eval(failures, work)
+        run_interpolate(failures)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2028,6 +2353,7 @@ def main() -> int:
     ablate_launches, ablate_entry = run_ablate(failures)
     warp_launches = run_bench_warp(failures)
     totals["fused_temporal_layer_ablate"] = ablate_entry
+    run_entry_points(failures)
 
     csrc = "cvpr23_lfdm_torch/csrc/"
     jops = "cvpr23_lfdm_tpu/ops/"

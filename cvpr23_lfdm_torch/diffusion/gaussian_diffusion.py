@@ -260,6 +260,38 @@ class GaussianDiffusion:
             img = x0 * torch.sqrt(alpha_next[i]) + coef[i] * eps + sigma[i] * noise
         return img
 
+    def interpolate(self, denoise, x1, x2, fea, cond=None, cond_scale: float = 1.0,
+                    t: int | None = None, lam: float = 0.5, noise1=None, noise2=None,
+                    noise_seq=None, generator=None):
+        """Latent interpolation (video_flow_diffusion.py:832-846): noise both
+        volumes to step `t` (default T - 1) with independent gaussians, lerp
+        by `lam`, then denoise ancestrally over steps t-1 .. 0. The
+        reference's version is dead code (it calls `p_sample` without
+        `fea`); this is the JAX package's repaired semantics, conditioning
+        threaded through as in the other samplers. `noise1`, `noise2` (each
+        `x1.shape`) and `noise_seq` (`[t, *x1.shape]`) inject the gaussians,
+        otherwise they come from `generator`, in that order."""
+        if x1.shape != x2.shape:
+            raise ValueError(f"interpolate: shapes {tuple(x1.shape)} and {tuple(x2.shape)} differ")
+        b = x1.shape[0]
+        device = x1.device
+        t = self.timesteps - 1 if t is None else t
+        tb = torch.full((b,), t, dtype=torch.long, device=device)
+        if noise1 is None:
+            noise1 = _normal(x1.shape, generator, device).to(x1.dtype)
+        if noise2 is None:
+            noise2 = _normal(x1.shape, generator, device).to(x1.dtype)
+        img = (1 - lam) * self.q_sample(x1, tb, noise1) + lam * self.q_sample(x2, tb, noise2)
+        fea_1 = fea[:, None]
+        for i, t_scalar in enumerate(range(t - 1, -1, -1)):
+            noise = _normal(x1.shape, generator, device).to(x1.dtype) if noise_seq is None else noise_seq[i]
+            tt = torch.full((b,), t_scalar, dtype=torch.long, device=device)
+            pred = self._guided_pred(denoise, img, tt, cond, cond_scale, fea_1)
+            x0, _ = self._pred_to_x0_eps(img, tt, pred)
+            mean, log_var = self.q_posterior(x0, img, tt)
+            img = mean + float(t_scalar > 0) * torch.exp(0.5 * log_var) * noise
+        return img
+
     def sample(self, denoise, fea, cond=None, cond_scale: float = 1.0,
                batch_size: int = 1, num_frames: int = 40, channels: int = 3,
                image_size: int = 32, init_img=None, noise_seq=None, generator=None):

@@ -1,6 +1,16 @@
-"""Shared pieces of the port's bench scripts: the `--device` flag, the
-repository's bench checkpoint, the two fused layers' serving shapes and
-their one bench (`run_layer`), one JSON object per output line."""
+"""Shared pieces of the port's scripts.
+
+The CLIs (`demo`, `test_dm`, `eval_flowautoenc`; counterpart of
+`scripts/_common.py`): :func:`base_parser` with `--device` in place of
+the JAX `--platform` / `--matmul-precision`, :func:`check_unported`,
+:func:`resolve_attn_impl`, :func:`apply_lfae_dtype`,
+:func:`resolve_data_root`, :func:`load_text_embedder` and the weight
+loaders. The JAX parser's `--warp-impl` has no counterpart: the port has
+one exact decode warp at every scale.
+
+The bench scripts: the `--device` flag, the repository's bench
+checkpoint, the two fused layers' serving shapes and their one bench
+(`run_layer`), one JSON object per output line."""
 
 from __future__ import annotations
 
@@ -144,3 +154,174 @@ def layer_main(layer: LayerBench, doc: str) -> None:
     card = card_line(device)
     for line in run_layer(layer, args.scan):
         emit({**line, "dtype": "bfloat16", "card": card})
+
+
+# ------------------------------------------------------------------- CLIs
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    """The flags every CLI takes, with the JAX CLIs' names and defaults."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--dataset", default="mug", choices=["mug", "mhad", "natops"])
+    p.add_argument("--data-root", default="", help="frame-folder corpus root")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate a synthetic corpus under --data-root (or a tmp dir)")
+    p.add_argument("--log-dir", default="log")
+    p.add_argument("--seed", type=int, default=1234)
+    add_device_arg(p)
+    p.add_argument("--bert-path", default="bert-base-cased",
+                   help="LOCAL directory of the bert-base-cased checkpoint (config.json, "
+                        "vocab.txt, model.safetensors or pytorch_model.bin) to build the "
+                        "class-text table when assets/bert_<dataset>.npz is missing")
+    p.add_argument("--allow-random-text", action="store_true",
+                   help="permit a deterministic RANDOM class-embedding table when no BERT "
+                        "table can be built (smoke/ablation only; conditioning values will "
+                        "NOT match the reference). Implied by --synthetic.")
+    p.add_argument("--loader", default="threads", choices=["threads", "grain"],
+                   help="batch loader backend: the thread pool; 'grain' is not ported")
+    p.add_argument("--attn-impl", default="auto", choices=["auto", "xla", "pallas3", "pallas2", "pallas"],
+                   help="UNet form: auto = pallas3 (the fused layers, rows 1 and 2) for "
+                        "serving, pallas2 for training; a named form is built as named")
+    p.add_argument("--lfae-dtype", default="", choices=["", "float32", "bfloat16"],
+                   help="LFAE compute dtype override (default: the preset's float32)")
+    p.add_argument("--coordinator", default="", help="multi-host: not ported")
+    p.add_argument("--num-processes", type=int, default=0, help="multi-host: not ported")
+    p.add_argument("--mesh", default="", help="multi-device serving mesh: not ported")
+    p.add_argument("--process-id", type=int, default=-1, help="multi-host: not ported")
+    return p
+
+
+def check_unported(args) -> None:
+    """A flag whose machinery is not ported raises, never silently ignored."""
+    if args.mesh or args.coordinator or args.num_processes > 1 or args.process_id >= 0:
+        raise SystemExit("--mesh / --coordinator / --num-processes / --process-id: multi-device "
+                         "is not ported yet (ROADMAP item 6)")
+    if args.loader == "grain":
+        raise SystemExit("--loader grain: the Grain loader is not ported yet (ROADMAP item 5)")
+
+
+def setup(args) -> torch.device:
+    """Check the flags; the device the run takes (`--device`, else the card)."""
+    from cvpr23_lfdm_torch.utils.device import resolve_device
+
+    check_unported(args)
+    return resolve_device(args.device)
+
+
+def resolve_attn_impl(args, training: bool = False) -> str:
+    """`--attn-impl` -> the UNet form (`models/unet3d.py::resolve_attn_impl`)."""
+    from cvpr23_lfdm_torch.models.unet3d import resolve_attn_impl as resolve
+
+    return resolve(args.attn_impl, training)
+
+
+def apply_lfae_dtype(cfg, args):
+    """Apply `--lfae-dtype` to a full config (empty: the preset's float32)."""
+    if getattr(args, "lfae_dtype", ""):
+        import dataclasses
+
+        cfg = cfg.replace(lfae=dataclasses.replace(cfg.lfae, compute_dtype=args.lfae_dtype))
+    return cfg
+
+
+def resolve_data_root(args, image_size: int = 128) -> str:
+    """`--data-root`, or with `--synthetic` a synthetic corpus there (or in a
+    new temporary directory) covering both splits."""
+    from cvpr23_lfdm_torch.data.specs import get_spec
+    from cvpr23_lfdm_torch.data.synthetic import make_synthetic_corpus
+
+    root = args.data_root
+    if args.synthetic:
+        if not root:
+            import tempfile
+
+            root = tempfile.mkdtemp(prefix=f"{args.dataset}_synth_")
+        if not os.path.isdir(root) or not os.listdir(root):
+            os.makedirs(root, exist_ok=True)
+            size = max(image_size, 320 if args.dataset == "natops" else image_size)
+            spec = get_spec(args.dataset)
+            subjects = list(spec.train_subjects[:2]) + list(spec.test_subjects[:2])
+            make_synthetic_corpus(root, args.dataset, num_frames=16, size=size, seed=args.seed,
+                                  subjects=subjects, classes=None, takes=2)
+        print(f"synthetic corpus at {root}")
+    if not root:
+        raise SystemExit("--data-root required (or pass --synthetic)")
+    return root
+
+
+def load_text_embedder(dataset_or_args, allow_random: bool = False, device=None):
+    """The cached BERT class-text table, built from `--bert-path` when the
+    cache is missing. Without a cache and a checkpoint this is a HARD error
+    unless `--allow-random-text` (or `--synthetic`): a random table gives
+    conditioning values that cannot match the reference."""
+    from cvpr23_lfdm_torch.models.text import DATASET_CLASSES, TextEmbedder
+
+    if isinstance(dataset_or_args, str):  # tests / direct calls
+        dataset, bert_path = dataset_or_args, "bert-base-cased"
+    else:
+        args = dataset_or_args
+        dataset, bert_path, device = args.dataset, args.bert_path, args.device
+        allow_random = args.allow_random_text or args.synthetic
+    try:
+        return TextEmbedder.build(dataset, model_name_or_path=bert_path, device=device)
+    except (OSError, KeyError, ValueError) as e:  # no cache and no readable checkpoint
+        if not allow_random:
+            raise SystemExit(
+                f"BERT class embeddings unavailable ({e}).\n"
+                f"Provide --bert-path <dir> with a local bert-base-cased checkpoint "
+                f"(config.json + model.safetensors/pytorch_model.bin + vocab.txt), or pass "
+                f"--allow-random-text to proceed with a deterministic random table "
+                f"(smoke/ablation only).") from None
+        print(f"warning: BERT embeddings unavailable ({e}); using random table")
+        return TextEmbedder.random_for_testing(DATASET_CLASSES[dataset])
+
+
+def lfae_state(path: str, lfae_cfg) -> dict | None:
+    """The `FlowAE` state dict of `--lfae-ckpt`: a reference `.pth`, or a
+    port checkpoint directory (`CheckpointManager`, the LFAE trainer's
+    `state_dict`); None for an empty path."""
+    from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager, load_lfae_from_torch
+
+    if not path:
+        return None
+    if path.endswith(".pth"):
+        return load_lfae_from_torch(path, lfae_cfg)
+    return CheckpointManager(path).restore("latest")["model"]
+
+
+def unet_state(path: str, unet) -> dict | None:
+    """The UNet state dict of `--dm-ckpt`: a reference `.pth`, or a port
+    checkpoint directory (the DM trainer's `state_dict`); None for an empty
+    path."""
+    from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager, load_unet_from_torch
+
+    if not path:
+        return None
+    if path.endswith(".pth"):
+        return load_unet_from_torch(path, unet)
+    return CheckpointManager(path).restore("latest")["unet"]
+
+
+def load_model_weights(model, lfae_path: str, dm_path: str) -> None:
+    """Load `--lfae-ckpt` / `--dm-ckpt` into a `FlowDiffusion`; what is not
+    given gets seeded weights (`seed_lfae_weights`, seeds 0 and 1), with a
+    warning, as the JAX CLIs' random init."""
+    from cvpr23_lfdm_torch.models.flow_autoenc import seed_lfae_weights
+
+    lfae = [getattr(model, n) for n in ("region_predictor", "bg_predictor", "generator")
+            if hasattr(model, n)]
+    state = lfae_state(lfae_path, model.lfae_cfg)
+    if state is None:
+        print("warning: no --lfae-ckpt; RANDOM stage-1 weights (smoke mode)")
+        seed_lfae_weights(lfae, 0)
+    else:
+        for name in ("region_predictor", "bg_predictor", "generator"):
+            if hasattr(model, name):
+                module = getattr(model, name)
+                own = module.state_dict()
+                module.load_state_dict({k: state[f"{name}.{k}"] for k in own})
+    state = unet_state(dm_path, model.unet)
+    if state is None:
+        print("warning: no --dm-ckpt; RANDOM UNet weights (smoke mode)")
+        seed_lfae_weights([model.unet], 1)
+    else:
+        model.unet.load_state_dict(state)

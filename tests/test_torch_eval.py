@@ -364,7 +364,18 @@ def test_viz_matches_jax(tmp_path):
     np.testing.assert_array_equal(tviz.conf2fig(conf, 32), jviz.conf2fig(conf, 32))
     grid = rng.uniform(-1, 1, size=(8, 8, 2)).astype(np.float32)
     np.testing.assert_array_equal(tviz.grid2fig(grid, img_size=64), jviz.grid2fig(grid, img_size=64))
+    # the port writes GIFs itself (one fixed palette) where the JAX package
+    # calls imageio: the same frames and timing, each pixel the nearest
+    # palette colour (within half a palette step of the frame, 255 / 5 / 2)
+    import imageio.v2 as imageio
+    from PIL import Image
+
     frames = rng.uniform(size=(3, 8, 8, 3)).astype(np.float32)
     tviz.save_gif(str(tmp_path / "a.gif"), frames)
     jviz.save_gif(str(tmp_path / "b.gif"), frames)
-    assert (tmp_path / "a.gif").read_bytes() == (tmp_path / "b.gif").read_bytes()
+    ours, theirs = (np.asarray(imageio.mimread(str(tmp_path / n)))[..., :3] for n in ("a.gif", "b.gif"))
+    assert ours.shape == theirs.shape == (3, 8, 8, 3)
+    np.testing.assert_array_equal(ours, tviz.quantize(tviz.to_uint8(frames)))
+    assert np.abs(ours.astype(int) - tviz.to_uint8(frames)).max() <= 255 / 5 / 2
+    info = [Image.open(str(tmp_path / n)).info for n in ("a.gif", "b.gif")]
+    assert info[0]["loop"] == info[1]["loop"] == 0 and info[0]["duration"] == info[1]["duration"]

@@ -193,7 +193,12 @@ def test_port_imports_no_jax():
                 "models/flow_autoenc.py", "train/vgg.py", "train/losses.py",
                 "train/lfae_trainer.py", "utils/bench_ckpt.py", "utils/checkpoint.py",
                 "utils/torch_convert.py", "data/loader.py", "utils/viz.py", "eval/metrics.py",
-                "eval/lpips.py", "eval/i3d.py", "eval/flowautoenc.py", "scripts/probe_lfae_nan.py"):
+                "eval/lpips.py", "eval/i3d.py", "eval/flowautoenc.py", "scripts/probe_lfae_nan.py",
+                "models/bert.py", "models/text.py", "utils/safetensors.py", "utils/logging.py",
+                "data/__init__.py", "data/specs.py", "data/sampling.py", "data/io.py",
+                "data/augment.py", "data/native.py", "data/datasets.py", "data/synthetic.py",
+                "parallel/serving.py", "scripts/demo.py", "scripts/test_dm.py",
+                "scripts/eval_flowautoenc.py"):
         assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:
