@@ -93,7 +93,15 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               the four losses of each step, gates on finite losses, every
               parameter and every BatchNorm statistic moved, the step
               counter; one step under torch.profiler (device busy, device
-              launches; `chip_smoke_out/profile_lfae_train.json`); the
+              launches; `chip_smoke_out/profile_lfae_train.json`; gated:
+              finite losses and parameters after it); per step, the
+              train-mode covariances' smallest eigenvalue, smallest ratio
+              of the two and count of thin ones; `sqrt_psd_2x2`'s
+              backward on the covariances the card recorded where a thin
+              region's fp32 eigenvalue once rounded to 0
+              (`tests/golden/lfae_nan_sqrt_psd.npz`; gated: finite, and
+              within 1e-5 of the float64 closed form computed here in the
+              thin region, 1e-4 elsewhere); the
               training warp's two candidates at the step's shapes
               (`scripts/bench_train_warp.py`: forward + backward ms each,
               per call and per step); `reconstruct` (eval) on the same batch,
@@ -177,11 +185,55 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               finite losses, PSNR, SSIM, LPIPS, FVD, cFVD, sFVD; 110 / 88 /
               10 launches per video).
 20. cli eval_flowautoenc — on the same synthetic corpus (gated: finite
-              losses, 20 row-3 launches per batch).
+              losses, 20 row-3 launches per batch); then with
+              `--save-video --num-batches 1 --batch-size 4` (gated: one GIF89a per video,
+              the warp lattices drawn without matplotlib; 20 row-3
+              launches).
 21. interpolate — `GaussianDiffusion.interpolate` on the bench checkpoint:
               bf16 at t = 20 (finite, 10 / 8 launches per step), fp32 at t
               = 3 against the plain versions within `PATH_TOL`.
 
+22. corpus  — the training entry points, in one scratch directory: one
+              synthetic MUG corpus, 40 frames at 128², two train and two
+              test subjects, two takes of two classes (8 training videos:
+              800 LFAE pairs, B=5 clips).
+23. cli train_dm — `python -m cvpr23_lfdm_torch.scripts.train_dm` in a
+              subprocess, B=5, 6 steps, `--save-img-freq 2 --save-vid-freq 3
+              --sample-vid-freq 6` (the preset's 1000-step sampler), then
+              `--resume` to 8 (gated: exit 0, the PNGs and GIFs written, the
+              resumed run starts at step 6 and ends at 8); `train_dm.run` in
+              this process, 4 steps, still grid every 2, sample at 4, the
+              sampler cut to DDIM-10 (counters set to 0 just before;
+              gated: rows 4 / 5 at 10 per step plus 10 per monitoring
+              forward and 100 per sampled video, row 3 counted, no row 1, 2
+              or other launch); seconds per step with and without the hooks;
+              host seconds per training GIF (80 `grid2fig` renders).
+24. cli train_lfae — the CLI in a subprocess, B=100, 4 steps,
+              `--save-img-freq 2`, then `--resume` to 6 (gated: exit 0, the
+              boards written, resumed at 4); `train_lfae.run` in this
+              process, 4 steps (fp32, TF32 off; gated: finite losses, the
+              board, row 3 at 4 per `reconstruct`, no other launch); seconds
+              per step; the loader's seconds per batch of 100 pairs (thread
+              loader, 6 threads, as the CLI).
+25. cli make_bench_ckpt — `make_bench_ckpt.main` in this process, 3 + 3
+              steps, one probe video, `--out` in the scratch directory
+              (gated: every file written, rows 1 / 2 / 3 at 100 / 80 / 3 per
+              probe video plus row 3 once per DM step, rows 4 / 5 at 10 per
+              DM step); bytes and seconds of the save; then
+              `apply_bench_ckpt` of the new directory and one `pallas3`
+              serving video on it (gated: finite, 100 / 80 / 3).
+26. loader grain — `GrainLoader` (8 worker processes) on the DM dataset,
+              B=5: seconds per batch against the thread loader's (16
+              threads); `train_dm --loader grain` for 3 steps, then resumed
+              to 5 (gated: each step's batch equal to a straight stream's).
+27. preprocess — which host libraries the installation has; `preprocess
+              --dataset mug` on the corpus (gated: a split); `mhad` and
+              `natops` on a raw tree (gated, without `cv2`: each raises the
+              `ImportError` naming the AVI decoder, nothing else is caught;
+              with `cv2`: the frame folders of MJPG AVIs it writes, 4 and 3 +
+              4 frames).
+
+Every phase line carries `clock_s`, the seconds since the script started.
 Then one `kernels` line (per kernel: launches on its main path, and its
 time, plain time, bound and library time summed over the calls named in
 `per`; for rows 1-9 also `device_ms` / `library_device_ms`, the
@@ -246,6 +298,11 @@ GOLDEN_TOL = 5e-3  # fp32 serving path on the card vs the JAX package on a CPU
 LFAE_BATCH = 100
 LFAE_STEPS_PER_EPOCH = 93
 LFAE_GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_lfae_step.npz")
+THIN_REGION = os.path.join(ROOT, "tests", "golden", "lfae_nan_sqrt_psd.npz")
+# |grad - float64 grad| / (|float64 grad| + 1e-3 max |float64 grad|): the thin
+# region (sample 3, region 1), and the other 159, which keep the fp32 closed
+# form and its rounding (2.4e-5 on a CPU)
+THIN_REGION_TOL, FP32_FORM_TOL = 1e-5, 1e-4
 # fp32 step on the card vs the JAX package on a CPU (B=2), max-abs per
 # output and relative per loss. The port on a CPU reads 2.6e-3 (prediction),
 # 8.6e-4 (flow), 6e-5 (occlusion), 3e-5 (region parameters), 6e-6 (step-1
@@ -282,7 +339,12 @@ METRIC_VIDEOS, METRIC_GROUPS, METRIC_FRAME = 16, 4, 128
 FVD_SELF_EPS = 1e-5  # |FVD(real, real)| <= eps * FVD(real, fake)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "clock_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1141,6 +1203,11 @@ def run_lfae_train(failures: list) -> None:
     cfg, trainer, state = lfae_trainer()
     data = lfae_batch(cfg, batch, seed=1)
     model = trainer.model
+    # each region-predictor call's smallest eigenvalue, its smallest ratio to
+    # the larger one, and its count of thin covariances (`ops/eig2x2.py`)
+    eig_seen = []
+    eig_hook = model.region_predictor.register_forward_hook(lambda mod, inp, out: eig_seen.append(
+        eig_stats(out["covar"].detach())))
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats0 = {n: b.detach().clone() for n, b in model.named_buffers()}
     torch.cuda.synchronize()
@@ -1175,9 +1242,19 @@ def run_lfae_train(failures: list) -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = trainer.train_step(state, step_generator(0, state.step, trainer.device), data)
+        state, profiled_m = trainer.train_step(state, step_generator(0, state.step, trainer.device), data)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    eig_hook.remove()
+    eig = [[float(x) for x in call] for call in eig_seen]  # 3 calls per step, 8 steps
+    per_step = [eig[i:i + 3] for i in range(0, len(eig), 3)]
+    eigen = {"min_small_eigenvalue_per_step": [min(c[0] for c in st) for st in per_step],
+             "min_ratio_per_step": [min(c[1] for c in st) for st in per_step],
+             "thin_covariances_per_step": [int(sum(c[2] for c in st)) for st in per_step],
+             "covariances_per_step": 3 * batch * cfg.lfae.num_regions}
+    profiled = {k: float(v) for k, v in profiled_m.items()}
+    checks["profiled_step_finite"] = bool(np.isfinite(list(profiled.values())).all()) and all(
+        torch_isfinite(p) for p in model.parameters())
     rows = profile_rows(prof)
     device = [r for r in rows if r["on_device"]]
     busy = sum(r["device_ms"] for r in device)
@@ -1188,7 +1265,8 @@ def run_lfae_train(failures: list) -> None:
           "frame": cfg.lfae.frame_shape, "regions": cfg.lfae.num_regions,
           "lr": cfg.lfae_train.lr, "scales": list(cfg.lfae_train.scales), **checks,
           "unmoved": unmoved[:5], "stats_unmoved": stats_unmoved[:5],
-          "kernel_launches_per_step": launches, "losses_7_steps": metrics,
+          "kernel_launches_per_step": launches, "losses_7_steps": metrics, "losses_profiled_step": profiled,
+          "train_mode_covariances": eigen,
           "step_s": secs, "median_step_s": med, "frames_per_s": batch / med, "peak_mem_gb": peak,
           "profiled_step": {"wall_ms": wall_ms, "device_busy_ms": busy,
                             "device_busy_share_of_its_wall": busy / wall_ms,
@@ -1198,6 +1276,7 @@ def run_lfae_train(failures: list) -> None:
     for k, v in checks.items():
         if not v:
             failures.append(f"lfae train {k}")
+    check_thin_region(failures)
 
     # the differentiable warp's two candidates at the step's shapes (forward + backward)
     total = {"plain": 0.0, "train_warp": 0.0}
@@ -1230,6 +1309,76 @@ def run_lfae_train(failures: list) -> None:
         failures.append("lfae reconstruct")
     del trainer, model, out, plain
     torch.cuda.empty_cache()
+
+
+def eig_stats(covar):
+    """The smallest eigenvalue of `covar [..., 2, 2]`, the smallest ratio of
+    the two, and how many are thin (`ops/eig2x2.py::_THIN`): device
+    tensors, read after the timed steps."""
+    import torch
+
+    from cvpr23_lfdm_torch.ops import eig2x2
+
+    s = eig2x2.eigh_2x2(covar)[1]
+    ratio = s[..., 1] / s[..., 0]
+    return torch.stack([s[..., 1].min(), ratio.min(), (ratio < eig2x2._THIN).sum().to(s.dtype)])
+
+
+def sqrt_psd_2x2_f64(covar):
+    """The JAX package's closed form of `U sqrt(S)` (`ops/eig2x2.py`), written
+    out here in float64, where `tr / 2 - rad` does not cancel."""
+    import torch
+
+    a, c = covar[..., 0, 0], covar[..., 1, 1]
+    b = 0.5 * (covar[..., 0, 1] + covar[..., 1, 0])
+    half_tr = 0.5 * (a + c)
+    rad = torch.sqrt(torch.clamp_min(0.25 * (a - c) ** 2 + b * b, 0.0))
+    s1, s2 = half_tr + rad, half_tr - rad
+    v1a, v1b = torch.stack([b, s1 - a], -1), torch.stack([s1 - c, b], -1)
+    v1 = torch.where(((v1a * v1a).sum(-1) >= (v1b * v1b).sum(-1))[..., None], v1a, v1b)
+    v1 = v1 / torch.sqrt((v1 * v1).sum(-1, keepdim=True))
+
+    def lead_sign(v):
+        lead = torch.where(v[..., 0].abs() >= v[..., 1].abs(), v[..., 0], v[..., 1])
+        return torch.where(lead < 0, -1.0, 1.0).to(v.dtype)[..., None]
+
+    v1 = v1 * lead_sign(v1)
+    v2 = torch.stack([-v1[..., 1], v1[..., 0]], -1)
+    v2 = v2 * lead_sign(v2)
+    u = torch.stack([v1, v2], -1)
+    return u * torch.sqrt(torch.clamp_min(torch.stack([s1, s2], -1), 0.0))[..., None, :]
+
+
+def check_thin_region(failures: list) -> None:
+    """`sqrt_psd_2x2`'s backward on the card, on the covariances a B=16 LFAE
+    run recorded where a thin region (variances 6.1e-9 and 0.35) had its
+    smaller eigenvalue rounded to 0 by the fp32 closed form: finite, and
+    within `THIN_REGION_TOL` of the float64 closed form's gradient there
+    (`FP32_FORM_TOL` elsewhere)."""
+    import torch
+
+    from cvpr23_lfdm_torch.ops.eig2x2 import eigh_2x2, sqrt_psd_2x2
+
+    rec = np.load(THIN_REGION)
+    covar = torch.from_numpy(rec["covar"]).cuda().requires_grad_(True)
+    cot = torch.from_numpy(rec["out_grad"]).cuda()
+    sqrt_psd_2x2(covar).backward(cot)
+    c64 = covar.detach().double().requires_grad_(True)
+    sqrt_psd_2x2_f64(c64).backward(cot.double())
+    got, want = covar.grad.double(), c64.grad
+    rel = ((got - want).abs() / (want.abs() + 1e-3 * float(want.abs().max()))).amax(dim=(-2, -1))
+    thin_rel = float(rel[3, 1])
+    rel[3, 1] = 0.0
+    s_thin = eigh_2x2(covar.detach())[1][3, 1].tolist()
+    line = {"phase": "lfae train", "what": "sqrt_psd_2x2 backward on the recorded thin region",
+            "finite": torch_isfinite(covar.grad), "eigenvalues_thin_region": s_thin,
+            "thin_grad_rel_vs_float64": thin_rel, "tol": THIN_REGION_TOL,
+            "other_grad_max_rel_vs_float64": float(rel.max()), "other_tol": FP32_FORM_TOL}
+    line["ok"] = bool(line["finite"] and s_thin[1] > 0 and thin_rel <= THIN_REGION_TOL
+                      and line["other_grad_max_rel_vs_float64"] <= FP32_FORM_TOL)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("lfae train thin region")
 
 
 def run_lfae_parity(failures: list) -> None:
@@ -2222,6 +2371,35 @@ def run_cli_eval(failures: list, work: str) -> None:
         failures.append("cli eval_flowautoenc")
     torch.cuda.empty_cache()
 
+    # --save-video: the warp lattices, drawn without matplotlib
+    log = os.path.join(work, "eval_video")
+    argv = ["--synthetic", "--data-root", root, "--log-dir", log, "--save-video", "--num-batches", "1",
+            "--batch-size", "4"]
+    reset_counters()
+    try:
+        res, secs = timed(lambda: eval_flowautoenc.main(argv))
+    except SystemExit as e:
+        res, secs = {"exit": str(e)}, 0.0
+    launches = counters()
+    gif_dir = os.path.join(log, "eval_videos")
+    gifs = sorted(os.listdir(gif_dir)) if os.path.isdir(gif_dir) else []
+    heads = []
+    for g in gifs:
+        with open(os.path.join(gif_dir, g), "rb") as f:
+            heads.append(f.read(6) == b"GIF89a")
+    want_gifs = min(4, videos)
+    line = {"phase": "cli eval_flowautoenc", "how": "--save-video, one batch", "argv": argv, **res,
+            "gifs": len(gifs), "gifs_expected": want_gifs,
+            "gif_bytes": sum(os.path.getsize(os.path.join(gif_dir, g)) for g in gifs),
+            "warp_video_launches": launches["warp_video"], "warp_video_launches_expected": 20,
+            "s": secs, "lattice_renders": want_gifs * F_FRAMES}
+    line["ok"] = bool(len(gifs) == want_gifs and all(heads) and launches["warp_video"] == 20
+                      and all(np.isfinite(res.get(k, np.nan)) for k in ("out_loss", "warp_loss")))
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli eval_flowautoenc --save-video")
+    torch.cuda.empty_cache()
+
 
 def run_interpolate(failures: list) -> None:
     """`GaussianDiffusion.interpolate` at MUG width on the bench checkpoint:
@@ -2269,6 +2447,434 @@ def run_interpolate(failures: list) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- the training entry points
+
+TRAIN_CLI_SEED = 1234
+TRAIN_SIZE = 128  # the MUG config's frames
+# layers per UNet evaluation of the MUG config: temporal (rows 1, 4, 5) and linear attention (row 2)
+TEMPORAL_PER_EVAL, LINEAR_PER_EVAL = 10, 8
+HEADPACKED_PER_EVAL = TEMPORAL_PER_EVAL
+
+
+def cli(module: str, argv: list, timeout: int = 600):
+    """`python -m cvpr23_lfdm_torch.scripts.<module> argv` in a subprocess:
+    `(CompletedProcess, seconds)`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"cvpr23_lfdm_torch.scripts.{module}", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout, env={**os.environ, "PYTHONPATH": ROOT})
+    return proc, time.perf_counter() - t0
+
+
+def tails(proc) -> dict:
+    return {"exit": proc.returncode, "stdout_tail": proc.stdout.strip().splitlines()[-3:],
+            "stderr_tail": proc.stderr.strip().splitlines()[-4:] if proc.returncode else []}
+
+
+def listing(path: str) -> list:
+    return sorted(os.listdir(path)) if os.path.isdir(path) else []
+
+
+@contextlib.contextmanager
+def step_clock(trainer_cls):
+    """Seconds of each `trainer_cls.train_step` inside the block (host
+    clock ending in a synchronize, the batch's transfer included), with each
+    step's metrics as floats in `trainer_cls.metrics_seen`."""
+    import torch
+
+    step, times = trainer_cls.train_step, []
+    trainer_cls.metrics_seen = []
+
+    def timed_step(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(self, *a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        trainer_cls.metrics_seen.append({n: float(v) for n, v in m.items()})
+        return state, m
+
+    trainer_cls.train_step = timed_step
+    try:
+        yield times
+    finally:
+        trainer_cls.train_step = step
+
+
+def run_train_corpus(work: str) -> str:
+    """Phase 22: the synthetic MUG corpus every training phase reads."""
+    from cvpr23_lfdm_torch.data.specs import get_spec
+    from cvpr23_lfdm_torch.data.synthetic import make_synthetic_corpus
+
+    root = os.path.join(work, "train_corpus")
+    spec = get_spec("mug")
+    subjects = list(spec.train_subjects[:2]) + list(spec.test_subjects[:2])
+    t0 = time.perf_counter()
+    make_synthetic_corpus(root, "mug", num_frames=F_FRAMES, size=TRAIN_SIZE, seed=TRAIN_CLI_SEED,
+                          subjects=subjects, classes=None, takes=2)
+    emit({"phase": "corpus", "root_files": sum(len(f) for _, _, f in os.walk(root)), "frames": F_FRAMES,
+          "size": TRAIN_SIZE, "subjects": subjects, "s": time.perf_counter() - t0})
+    return root
+
+
+def run_cli_train_dm(failures: list, work: str, root: str) -> None:
+    """Phase 23: the DM training CLI in a subprocess (6 steps, every hook,
+    then resumed to 8) and `train_dm.run` in this process with the launch
+    counters."""
+    import dataclasses
+
+    import torch
+
+    from cvpr23_lfdm_torch.scripts import train_dm
+    from cvpr23_lfdm_torch.train import dm_trainer
+    from cvpr23_lfdm_torch.utils import viz
+    from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager
+
+    log = os.path.join(work, "train_dm_cli")
+    base = ["--synthetic", "--data-root", root, "--log-dir", log, "--save-img-freq", "2", "--save-vid-freq", "3",
+            "--sample-vid-freq", "6"]
+    first, first_s = cli("train_dm", base + ["--num-steps", "6"])
+    resumed, resumed_s = cli("train_dm", base + ["--num-steps", "8", "--resume"])
+    imgs, shots = listing(os.path.join(log, "dm_imgs")), listing(os.path.join(log, "dm_vidshots"))
+    samples = listing(os.path.join(log, "dm_samples"))
+    latest = CheckpointManager(os.path.join(log, "dm_ckpt")).latest_step() if os.path.isdir(
+        os.path.join(log, "dm_ckpt")) else None
+    want = {"imgs": [f"step_{k:07d}.png" for k in (2, 4, 6, 8)],
+            "vidshots": ["B0005_S000003.gif", "B0005_S000006.gif"], "samples": ["B0005_S000006.gif"]}
+    line = {"phase": "cli train_dm", "how": "subprocess, B=5, 6 steps then --resume to 8", "first": tails(first),
+            "resumed": tails(resumed), "first_s": first_s, "resumed_s": resumed_s, "imgs": imgs,
+            "vidshots": shots, "samples": samples, "latest_step": latest,
+            "resumed_at_6": "resumed at step 6" in resumed.stdout}
+    line["ok"] = bool(first.returncode == 0 and resumed.returncode == 0 and line["resumed_at_6"] and latest == 8
+                      and imgs == want["imgs"] and shots == want["vidshots"] and samples == want["samples"])
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli train_dm subprocess")
+
+    # in process, counted: 4 steps, still grid at 2 and 4, GIF and sample at 4
+    steps, ddim = 4, DDIM_STEPS
+    args = train_dm.parser().parse_args(["--synthetic", "--data-root", root, "--log-dir", os.path.join(work, "dm_run"),
+                                         "--num-steps", str(steps), "--save-img-freq", "2", "--save-vid-freq",
+                                         str(10 * steps), "--sample-vid-freq", "4"])
+    cfg = train_dm.build_config(args)
+    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, sampling_timesteps=ddim))
+    torch.cuda.synchronize()
+    reset_counters()
+    with step_clock(dm_trainer.DMTrainer) as step_s:
+        res = train_dm.run(cfg, args)
+    launches = counters()
+    monitors, sampled = 3, 1  # viz at 2 and 4, the sample hook's own monitor; one sampled video
+    want = {"headpacked_attention_fwd": HEADPACKED_PER_EVAL * (steps + monitors + ddim * sampled),
+            "headpacked_attention_bwd": HEADPACKED_PER_EVAL * steps}
+    others = {k: v for k, v in launches.items() if k not in want and k != "warp_video" and v}
+    finite = all(bool(torch.isfinite(p).all()) for p in res["trainer"].model.unet.parameters())
+    line = {"phase": "cli train_dm", "how": f"train_dm.run in process, {steps} steps, grid at 2/4, sample at 4 "
+                                           f"(DDIM-{ddim})",
+            "launches": {k: launches[k] for k in (*want, "warp_video")}, "launches_expected": want,
+            "other_kernel_launches": others, "fit_s": res["fit_s"], "hook_s": res["hook_s"],
+            "hooks_s": res["hooks_s"], "step_s": step_s, "s_per_step_after_the_first": float(np.median(step_s[1:])),
+            "s_per_step_with_hooks": res["fit_s"] / steps,
+            "s_per_step_without_hooks": (res["fit_s"] - res["hook_s"]) / steps, "finite": finite}
+    line["ok"] = bool(finite and not others and launches["warp_video"] > 0
+                      and all(launches[k] == v for k, v in want.items()))
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli train_dm in process")
+    del res
+    torch.cuda.empty_cache()
+
+    # host seconds of one training GIF's panels: 40 frames, 2 lattices each
+    rng = np.random.default_rng(0)
+    lin = np.linspace(-1, 1, 32, dtype=np.float32)
+    ident = np.stack(np.meshgrid(lin, lin, indexing="xy"), -1)
+    vid = rng.random((F_FRAMES, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.float32)
+    grids = ident + 0.02 * rng.standard_normal((F_FRAMES, 32, 32, 2)).astype(np.float32)
+    conf = rng.random((F_FRAMES, 32, 32, 1)).astype(np.float32)
+    t0 = time.perf_counter()
+    frames = viz.dm_training_gif(vid[0], vid, vid, vid, vid, vid, grids, grids, conf, conf, img_size=TRAIN_SIZE)
+    gif_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    viz.save_gif(os.path.join(work, "panel.gif"), frames)
+    emit({"phase": "cli train_dm", "how": "one training GIF on the host (40 frames, 80 grid2fig renders)",
+          "panels_s": gif_s, "grid2fig_ms": 1e3 * gif_s / (2 * F_FRAMES), "gif_write_s": time.perf_counter() - t0,
+          "frames": list(frames.shape), "gpu": gpu_line()})
+
+
+def run_cli_train_lfae(failures: list, work: str, root: str) -> None:
+    """Phase 24: the LFAE training CLI in a subprocess (4 steps, then
+    resumed to 6) and `train_lfae.run` in this process with the counters;
+    the thread loader's seconds per batch."""
+    import torch
+
+    from cvpr23_lfdm_torch.data import ClipAugment, DatasetRepeater, LFAEPairDataset, PrefetchLoader, get_spec
+    from cvpr23_lfdm_torch.scripts import train_lfae
+    from cvpr23_lfdm_torch.train import lfae_trainer
+
+    log = os.path.join(work, "train_lfae_cli")
+    base = ["--synthetic", "--data-root", root, "--log-dir", log, "--save-img-freq", "2"]
+    first, first_s = cli("train_lfae", base + ["--num-steps", "4"])
+    resumed, resumed_s = cli("train_lfae", base + ["--num-steps", "6", "--resume"])
+    boards = listing(os.path.join(log, "lfae_imgs"))
+    line = {"phase": "cli train_lfae", "how": "subprocess, B=100, 4 steps then --resume to 6",
+            "first": tails(first), "resumed": tails(resumed), "first_s": first_s, "resumed_s": resumed_s,
+            "boards": boards, "resumed_at_4": "resumed at step 4" in resumed.stdout}
+    line["ok"] = bool(first.returncode == 0 and resumed.returncode == 0 and line["resumed_at_4"]
+                      and boards == [f"step_{k:07d}.png" for k in (2, 4, 6)])
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli train_lfae subprocess")
+
+    steps = 4
+    args = train_lfae.parser().parse_args(["--synthetic", "--data-root", root, "--log-dir",
+                                           os.path.join(work, "lfae_run"), "--num-steps", str(steps),
+                                           "--save-img-freq", "2"])
+    torch.cuda.synchronize()
+    reset_counters()
+    with step_clock(lfae_trainer.LFAETrainer) as step_s:
+        res = train_lfae.run(train_lfae.build_config(args), args)
+    launches = counters()
+    losses = lfae_trainer.LFAETrainer.metrics_seen
+    boards = listing(os.path.join(work, "lfae_run", "lfae_imgs"))
+    want = 4 * len(boards)  # four decode warps per reconstruct
+    others = {k: v for k, v in launches.items() if k != "warp_video" and v}
+    finite = all(np.isfinite(v) for m in losses for v in m.values()) and len(losses) == steps
+    line = {"phase": "cli train_lfae", "how": f"train_lfae.run in process, {steps} steps, board at 2 and 4",
+            "losses": losses, "finite": finite, "boards": boards, "warp_video_launches": launches["warp_video"],
+            "warp_video_launches_expected": want, "other_kernel_launches": others, "fit_s": res["fit_s"],
+            "hook_s": res["hook_s"], "step_s": step_s, "s_per_step_after_the_first": float(np.median(step_s[1:])),
+            "s_per_step_without_hooks": (res["fit_s"] - res["hook_s"]) / steps,
+            "s_per_step_with_hooks": res["fit_s"] / steps, "dtype": "float32 (TF32 off)",
+            "avd_params": res["avd_params"]}
+    line["ok"] = bool(finite and len(boards) == 2 and launches["warp_video"] == want and not others)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli train_lfae in process")
+    del res
+    torch.cuda.empty_cache()
+
+    # the loader the CLI runs: 100 pairs per batch, 6 threads
+    ds = DatasetRepeater(LFAEPairDataset(get_spec("mug"), root, "train", frame_shape=TRAIN_SIZE, augment=ClipAugment(),
+                                         seed=TRAIN_CLI_SEED), 100)
+    it = iter(PrefetchLoader(ds, 100, num_workers=6, seed=TRAIN_CLI_SEED))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        next(it)
+    emit({"phase": "cli train_lfae", "how": "the thread loader alone (6 threads), 5 batches after the first",
+          "loader_s_per_batch": (time.perf_counter() - t0) / 5, "pairs_per_batch": 100, "gpu": gpu_line()})
+
+
+def run_cli_make_bench_ckpt(failures: list, work: str) -> None:
+    """Phase 25: `make_bench_ckpt.main` in this process (3 + 3 steps, one
+    probe video) with the counters, then one serving video on the new
+    checkpoint."""
+    import dataclasses
+
+    import torch
+
+    from cvpr23_lfdm_torch.config import mug_config
+    from cvpr23_lfdm_torch.scripts import make_bench_ckpt
+    from cvpr23_lfdm_torch.utils.bench_ckpt import apply_bench_ckpt
+
+    out = os.path.join(work, "bench_ckpt")
+    argv = ["--lfae-steps", "3", "--dm-steps", "3", "--probe-videos", "1", "--out", out,
+            "--data-root", os.path.join(work, "bench_corpus"), "--log-dir", os.path.join(work, "bench_log")]
+    torch.cuda.synchronize()
+    reset_counters()
+    res, secs = timed(lambda: make_bench_ckpt.main(argv))
+    launches = counters()
+    dm_steps = 3
+    want = {"fused_temporal_layer": TEMPORAL_PER_EVAL * DDIM_STEPS,
+            "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3 + dm_steps,
+            "headpacked_attention_fwd": HEADPACKED_PER_EVAL * dm_steps,
+            "headpacked_attention_bwd": HEADPACKED_PER_EVAL * dm_steps}
+    files = listing(out)
+    need = [".lock", "cond.npy", "fit_report.json", "generator.msgpack", "meta.json", "ref.npy", "unet.msgpack"]
+    report = res["report"]
+    finite = all(np.isfinite(v) for d in report["disp_p99_px"] for v in d.values())
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    line = {"phase": "cli make_bench_ckpt", "argv": argv, "files": files, "bytes": res["bytes"],
+            "save_s": res["save_s"], "lfae_s": res["lfae_s"], "dm_s": res["dm_s"], "probe_s": res["probe_s"],
+            "s": secs, "disp_p99_px": report["disp_p99_px"], "fit_rate_in_report": "fit_rate" in report,
+            "launches": {k: launches[k] for k in want}, "launches_expected": want, "other_kernel_launches": others}
+    line["ok"] = bool(files == need and finite and "fit_rate" not in report and not others
+                      and all(launches[k] == v for k, v in want.items()))
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli make_bench_ckpt")
+    torch.cuda.empty_cache()
+
+    cfg = mug_config()
+    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, temporal_attn_impl="pallas3",
+                                                    sampling_timesteps=DDIM_STEPS))
+    try:
+        cfg, model, cond, ref, meta = apply_bench_ckpt(out, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model.sample_video(ref, cond, 1.0, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        video, secs = timed(lambda: model.sample_video(ref, cond, 1.0, generator=gen))
+        launches = counters()
+        want = {"fused_temporal_layer": TEMPORAL_PER_EVAL * DDIM_STEPS,
+                "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3}
+        line = {"phase": "cli make_bench_ckpt", "how": "apply_bench_ckpt of the new directory, one pallas3 video",
+                "objective": meta["objective"], "shape": list(video["out_vid"].shape),
+                "finite": all(torch_isfinite(v) for v in video.values()), "launches": {k: launches[k] for k in want},
+                "launches_expected": want, "s": secs}
+        line["ok"] = bool(line["finite"] and all(launches[k] == v for k, v in want.items()))
+        del model
+    except (OSError, RuntimeError, KeyError) as e:
+        line = {"phase": "cli make_bench_ckpt", "how": "apply_bench_ckpt of the new directory", "error": str(e)[:300],
+                "ok": False}
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("cli make_bench_ckpt serving")
+    torch.cuda.empty_cache()
+
+
+def run_loader_grain(failures: list, work: str, root: str) -> None:
+    """Phase 26: `GrainLoader` against the thread loader on the DM dataset,
+    and `train_dm --loader grain` for 3 steps, then resumed to 5, each
+    step's batch against a straight stream's."""
+    import torch
+
+    from cvpr23_lfdm_torch.config import mug_config
+    from cvpr23_lfdm_torch.data import DMVideoDataset, PrefetchLoader, get_spec
+    from cvpr23_lfdm_torch.data.grain_loader import GrainLoader
+    from cvpr23_lfdm_torch.scripts import train_dm
+
+    cfg = mug_config()
+    ds = DMVideoDataset(get_spec("mug"), root, "train", num_frames=F_FRAMES, image_size=TRAIN_SIZE,
+                        sampling=cfg.dm_train.frame_sampling, seed=TRAIN_CLI_SEED)
+
+    def per_batch(loader, n: int = 5):
+        it = iter(loader)
+        got = [next(it)]
+        t0 = time.perf_counter()
+        got += [next(it) for _ in range(n - 1)]
+        return got, (time.perf_counter() - t0) / (n - 1)
+
+    grain = GrainLoader(ds, 5, num_workers=8, seed=TRAIN_CLI_SEED)
+    straight, grain_s = per_batch(grain)
+    grain.close()
+    _, threads_s = per_batch(PrefetchLoader(ds, 5, num_workers=16, seed=TRAIN_CLI_SEED))
+
+    seen, batches = [], train_dm.dm_batches
+
+    def recorded(loader, embedder):
+        for b in batches(loader, embedder):
+            seen.append(b["real_vid"].copy())
+            yield b
+
+    log = os.path.join(work, "grain_dm")
+    base = ["--synthetic", "--data-root", root, "--log-dir", log, "--loader", "grain"]
+    train_dm.dm_batches = recorded
+    try:
+        first = train_dm.main(base + ["--num-steps", "3"])
+        second = train_dm.main(base + ["--num-steps", "5", "--resume"])
+    finally:
+        train_dm.dm_batches = batches
+    equal = [bool(np.array_equal(a, b["video"])) for a, b in zip(seen, straight)]
+    line = {"phase": "loader grain", "batch": 5, "frames": F_FRAMES, "grain_workers": 8, "thread_workers": 16,
+            "grain_s_per_batch": grain_s, "threads_s_per_batch": threads_s,
+            "steps": [first["start_step"], first["state"].step, second["start_step"], second["state"].step],
+            "batches_equal_straight": equal}
+    line["ok"] = bool(len(equal) == 5 and all(equal) and line["steps"] == [0, 3, 3, 5])
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("loader grain")
+    del first, second
+    torch.cuda.empty_cache()
+
+
+HOST_LIBRARIES = ("cv2", "imageio", "PIL", "matplotlib", "grain", "transformers", "flax", "jax", "orbax")
+
+
+def host_libraries() -> dict:
+    """Which of the host libraries the JAX package leans on this
+    installation has (found, not imported)."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None for m in HOST_LIBRARIES}
+
+
+def write_avi(path: str, frames: int, size) -> None:
+    """An MJPG AVI of seeded frames (`tests/test_preprocess_video.py`'s)."""
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 20, size)
+    rng = np.random.default_rng(0)
+    for i in range(frames):
+        frame = np.full((size[1], size[0], 3), i * 10 % 255, np.uint8)
+        frame[:4, :4] = rng.integers(0, 255, (4, 4, 3), np.uint8)
+        writer.write(frame)
+    writer.release()
+
+
+def run_preprocess(failures: list, work: str, root: str) -> None:
+    """Phase 27: `preprocess --dataset mug` on the corpus; then `mhad` and
+    `natops` on a raw tree. Where this installation has no `cv2`, each must
+    raise the ImportError that names the AVI decoder (only that error is
+    caught); where it has one, the tree holds MJPG AVIs it writes and each
+    must cut them into the frame folders `tests/test_preprocess_video.py`
+    expects."""
+    from cvpr23_lfdm_torch.scripts import preprocess
+
+    libs = host_libraries()
+    res = preprocess.main(["--dataset", "mug", "--data-root", root])
+    raw = os.path.join(work, "raw")
+    mhad, natops = os.path.join(raw, "mhad"), os.path.join(raw, "natops")
+    for d in ("RGB", "Depth"):
+        os.makedirs(os.path.join(mhad, d), exist_ok=True)
+    os.makedirs(os.path.join(natops, "gesture01"), exist_ok=True)
+    avis = {os.path.join(mhad, "RGB", "a1_s1_t1_color.avi"): (4, (640, 480)),
+            os.path.join(natops, "gesture01", "g01s01.avi"): (10, (32, 24))}
+    for path, (frames, size) in avis.items():
+        if libs["cv2"]:
+            write_avi(path, frames, size)
+        else:
+            open(path, "wb").close()  # never decoded: reading it raises first
+    open(os.path.join(mhad, "Depth", "a1_s1_t1_depth.mat"), "wb").close()  # only its presence is read
+    lines = []
+    for subject in range(1, 21):
+        lines.append(f"// Subject {subject}")
+        for action in range(1, 25):
+            lines.append(f"{subject},{action},2")
+            if (subject, action) == (1, 1):
+                lines += ["1:2,4", "2:6,9"]
+    with open(os.path.join(natops, "segmentation.txt"), "w") as f:
+        f.write("\n".join(lines))
+    outcome = {}
+    for dataset, path in (("mhad", mhad), ("natops", natops)):
+        out = os.path.join(raw, dataset + "_out")
+        try:
+            preprocess.main(["--dataset", dataset, "--data-root", path, "--out-dir", out])
+            outcome[dataset] = {d: len(os.listdir(os.path.join(out, d))) for d in listing(out)}
+        except ImportError as e:
+            if libs["cv2"]:
+                raise
+            outcome[dataset] = str(e)
+    if libs["cv2"]:
+        ok = outcome == {"mhad": {"a1_s1_t1": 4}, "natops": {"g01s01p01": 3, "g01s01p02": 4}}
+    else:
+        ok = all(isinstance(e, str) and "AVI" in e and "cv2" in e for e in outcome.values())
+    line = {"phase": "preprocess", "host_libraries": libs, "mug_train": len(res["train"]),
+            "mug_test": len(res["test"]), "mhad": outcome["mhad"], "natops": outcome["natops"]}
+    line["ok"] = bool(res["train"] and ok)
+    emit({**line, "gpu": gpu_line()})
+    if not line["ok"]:
+        failures.append("preprocess")
+
+
+def run_training_entry_points(failures: list, work: str) -> None:
+    """Phases 22-27, on one corpus in `work`."""
+    root = run_train_corpus(work)
+    run_cli_train_dm(failures, work, root)
+    run_cli_train_lfae(failures, work, root)
+    run_cli_make_bench_ckpt(failures, work)
+    run_loader_grain(failures, work, root)
+    run_preprocess(failures, work, root)
+
+
 def run_entry_points(failures: list) -> None:
     """The phases of the user entry points, in one scratch directory."""
     import shutil
@@ -2280,6 +2886,7 @@ def run_entry_points(failures: list) -> None:
         run_cli_demo(failures, work, bert)
         run_cli_eval(failures, work)
         run_interpolate(failures)
+        run_training_entry_points(failures, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

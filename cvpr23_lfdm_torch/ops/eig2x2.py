@@ -11,6 +11,17 @@ Where the JAX package takes `jnp.maximum`, this file takes `ops.ties.maximum`,
 which gives each side half the gradient at a tie as JAX does
 (`torch.clamp_min` gives all of it to one side), so gradients agree at
 degenerate covariances too.
+
+One departure: for a thin matrix (smaller eigenvalue under `_THIN` of the
+larger) the smaller eigenvalue is `det / s1`, not the JAX package's
+`tr / 2 - rad`. The two are the same number, but the difference cancels in
+fp32: for a thin region (variances 6.1e-9 and 0.35, recorded on the card in
+`tests/golden/lfae_nan_sqrt_psd.npz`) it rounds to 0, and `sqrt(S)` and
+`inv_2x2` of the factor then give an infinite gradient or a singular matrix,
+which made LFAE training go NaN. The determinant is taken in float64 (the
+products of fp32 entries are exact there), so that eigenvalue is exact to
+fp32 rounding. Every other matrix takes the JAX package's expression, and a
+truly singular one (determinant 0) gets the same 0 from both.
 """
 
 from __future__ import annotations
@@ -20,6 +31,9 @@ import torch
 from cvpr23_lfdm_torch.ops.ties import maximum
 
 _EPS = 1e-12
+# below this ratio of the eigenvalues, fp32 `tr / 2 - rad` keeps fewer than
+# ~4 significant digits of the smaller one
+_THIN = 1e-3
 
 
 def _lead_sign(v: torch.Tensor) -> torch.Tensor:
@@ -42,6 +56,11 @@ def eigh_2x2(covar: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     rad = torch.sqrt(maximum(0.25 * (a - c) ** 2 + b * b, 0.0))
     s1 = half_tr + rad
     s2 = half_tr - rad
+    # a thin matrix's smaller eigenvalue without cancellation: det / s1 (see
+    # the docstring)
+    thin = s2 < _THIN * s1
+    det = a.double() * c.double() - b.double() * b.double()
+    s2 = torch.where(thin, (det / torch.where(thin, s1, 1.0).double()).to(s1.dtype), s2)
 
     # eigenvector for s1: (b, s1 - a) or (s1 - c, b), the larger-norm one
     v1a = torch.stack([b, s1 - a], dim=-1)

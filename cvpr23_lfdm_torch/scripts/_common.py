@@ -1,12 +1,14 @@
 """Shared pieces of the port's scripts.
 
-The CLIs (`demo`, `test_dm`, `eval_flowautoenc`; counterpart of
+The CLIs (`demo`, `test_dm`, `eval_flowautoenc`, `train_dm`,
+`train_lfae`, `make_bench_ckpt`, `preprocess`; counterpart of
 `scripts/_common.py`): :func:`base_parser` with `--device` in place of
 the JAX `--platform` / `--matmul-precision`, :func:`check_unported`,
 :func:`resolve_attn_impl`, :func:`apply_lfae_dtype`,
-:func:`resolve_data_root`, :func:`load_text_embedder` and the weight
-loaders. The JAX parser's `--warp-impl` has no counterpart: the port has
-one exact decode warp at every scale.
+:func:`resolve_data_root`, :func:`load_text_embedder`, the weight
+loaders, and the training CLIs' resumable loader (:func:`train_loader`,
+:func:`loader_extra`). The JAX parser's `--warp-impl` has no counterpart:
+the port has one exact decode warp at every scale.
 
 The bench scripts: the `--device` flag, the repository's bench
 checkpoint, the two fused layers' serving shapes and their one bench
@@ -177,7 +179,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "table can be built (smoke/ablation only; conditioning values will "
                         "NOT match the reference). Implied by --synthetic.")
     p.add_argument("--loader", default="threads", choices=["threads", "grain"],
-                   help="batch loader backend: the thread pool; 'grain' is not ported")
+                   help="batch loader backend of the training CLIs: the thread pool, or worker "
+                        "PROCESSES (data/grain_loader.py, on torch.utils.data; resumable mid-epoch)")
     p.add_argument("--attn-impl", default="auto", choices=["auto", "xla", "pallas3", "pallas2", "pallas"],
                    help="UNet form: auto = pallas3 (the fused layers, rows 1 and 2) for "
                         "serving, pallas2 for training; a named form is built as named")
@@ -195,8 +198,6 @@ def check_unported(args) -> None:
     if args.mesh or args.coordinator or args.num_processes > 1 or args.process_id >= 0:
         raise SystemExit("--mesh / --coordinator / --num-processes / --process-id: multi-device "
                          "is not ported yet (ROADMAP item 6)")
-    if args.loader == "grain":
-        raise SystemExit("--loader grain: the Grain loader is not ported yet (ROADMAP item 5)")
 
 
 def setup(args) -> torch.device:
@@ -325,3 +326,31 @@ def load_model_weights(model, lfae_path: str, dm_path: str) -> None:
         seed_lfae_weights([model.unet], 1)
     else:
         model.unet.load_state_dict(state)
+
+
+def train_loader(args, dataset, batch_size: int, start_step: int, ckpt, threads: int):
+    """The training CLIs' batch loader, at the batch a resumed run starts
+    from: `--loader threads` seeks `PrefetchLoader` to `start_step` (its
+    stream is a pure function of the batch number); `--loader grain` seeks
+    `GrainLoader` (8 worker processes) to the state saved in the
+    checkpoint's sidecar. One process: the whole global batch."""
+    from cvpr23_lfdm_torch.data import PrefetchLoader
+    from cvpr23_lfdm_torch.data.grain_loader import GrainLoader
+
+    if args.loader != "grain":
+        return PrefetchLoader(dataset, batch_size, num_workers=threads, seed=args.seed,
+                              start_batch=start_step)
+    loader = GrainLoader(dataset, batch_size, num_workers=8, seed=args.seed)
+    extra = ckpt.load_extra() if start_step else None
+    if extra and "grain_state" in extra:
+        loader.set_state(extra["grain_state"])
+    return loader
+
+
+def loader_extra(args, loader) -> dict:
+    """The checkpoint sidecar of a training CLI: the seed, and the
+    `--loader grain` position."""
+    extra = {"seed": args.seed}
+    if args.loader == "grain":
+        extra["grain_state"] = loader.get_state()
+    return extra

@@ -4,8 +4,9 @@
 Reconstructs held-out videos from frame 0 through `eval/flowautoenc.py::
 evaluate` and reports per-pixel L1 (`out_loss`, `warp_loss`) to stdout and
 JSON (the reference's normalization, test_flowautoenc_mug.py:208-215).
-`--save-video` draws the warp lattice with matplotlib (`utils/viz.py::
-grid2fig`).
+`--save-video` writes one GIF per video (frame | prediction | deformed |
+warp lattice | occlusion), its lattice drawn as matplotlib draws it by
+`utils/viz.py::grid2fig`, which needs no matplotlib.
 
 Usage: python -m cvpr23_lfdm_torch.scripts.eval_flowautoenc [--device cpu]
        [--synthetic] [--lfae-ckpt RegionMM.pth | checkpoint dir]

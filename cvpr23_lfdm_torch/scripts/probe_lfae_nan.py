@@ -9,9 +9,12 @@ the first such step. With `--anomaly`, that step runs again under
 `torch.autograd.detect_anomaly` and the line names the backward function
 that made the first NaN and the forward line that built it.
 
-A collapsed region heatmap (a softmax at temperature 0.1 that puts all its
-mass on one pixel) has a zero covariance; `ops/eig2x2.py::sqrt_psd_2x2`
-then differentiates `sqrt` at 0, as the JAX package's does.
+A thin region heatmap (a softmax at temperature 0.1 that puts its mass on
+one row or column of pixels) has a covariance whose smaller eigenvalue the
+JAX package's fp32 closed form `tr / 2 - rad` rounds to 0, and its
+`sqrt_psd_2x2` then differentiates `sqrt` at 0. The port takes that
+eigenvalue as `det / s1` (`ops/eig2x2.py`), which does not cancel; the
+probe finds where a run still goes non-finite.
 
 Usage: python -m cvpr23_lfdm_torch.scripts.probe_lfae_nan [--seed 2]
        [--data-seed 3] [--batch 16] [--steps 3] [--anomaly] [--device cpu]

@@ -25,27 +25,41 @@ paths (`/` becomes `.`). Leaves map as:
 That covers every leaf of the UNet, the whole LFAE tree (`FlowAE` and
 `LFAEReconstruction`: `params` and `batch_stats` of `region_predictor`,
 `bg_predictor` and `generator`), `AVDNetwork` (Dense and BatchNorm leaves)
-and `Vgg19Features` (`conv_{idx}`). :func:`to_jax_params` is the inverse
-for the modules without a deconv, 1x1x1 conv or embedding (the LFAE, the
-AVD network, the VGG): a state dict -> a JAX variable tree of numpy arrays,
-so that a JAX run can start from the port's seeded weights.
+and `Vgg19Features` (`conv_{idx}`). :func:`to_jax_params` is the inverse: a
+state dict of any of them -> a JAX variable tree of numpy arrays, so that a
+JAX run can start from the port's weights. A state dict does not say which
+`[out, in]` weights were 1x1x1 convolutions or embeddings; the UNet's are
+named (`_CONV1X1X1`, `_EMBED`).
+
+:func:`save_bench_ckpt` writes the checkpoint from the port's state dicts
+(counterpart of the JAX `save_bench_ckpt`): the same files, the same bytes
+for the same weights, through :func:`to_jax_params` and
+`utils/msgpack.py::msgpack_serialize`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import fcntl
+import io
 import json
 import os
 
 import numpy as np
 import torch
 
-from cvpr23_lfdm_torch.utils.msgpack import msgpack_restore
+from cvpr23_lfdm_torch.utils.msgpack import msgpack_restore, msgpack_serialize
 
 _RENAME = {
     "scale": "weight", "mean": "running_mean", "var": "running_var",
     "embedding": "weight",
 }
+# the UNet's modules whose JAX kernel is a 1x1x1 convolution `[1, 1, 1, in,
+# out]` and whose `Embed` table is an `embedding`: the port holds both as
+# `[out, in]` / `[num, dim]` weights, like a Dense layer's
+_CONV1X1X1 = ("res_conv", "final_conv", "occlusion_conv")
+_EMBED = ("relative_attention_bias",)
 
 
 def _convert_leaf(path: list[str], value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -91,28 +105,38 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
 
 def to_jax_params(state: dict) -> dict:
     """The JAX variable tree `{"params": ..., "batch_stats": ...}` (nested
-    dicts of fp32 numpy arrays) of a state dict of the LFAE, the AVD network
-    or the VGG: `weight` OIHW -> conv `kernel` HWIO, `weight` `[out, in]` ->
-    Dense `kernel` `[in, out]`, a 1-D `weight` -> `scale`, `running_mean` /
-    `running_var` -> `batch_stats` `mean` / `var`; `bias` keeps its name."""
+    dicts of fp32 numpy arrays) of a state dict of the UNet, the LFAE, the
+    AVD network or the VGG, inverting :func:`from_jax_params`: `weight` OIHW
+    -> conv `kernel` HWIO (a `*upsample` module's `ConvTranspose2d` weight ->
+    its deconv kernel), `weight` `[out, in]` -> Dense `kernel` `[in, out]`
+    (`_CONV1X1X1`: `[1, 1, 1, in, out]`; `_EMBED`: `embedding` as it is), a
+    1-D `weight` -> `scale`, `running_mean` / `running_var` -> `batch_stats`
+    `mean` / `var`; `bias` and `gamma` keep their names."""
     tree = {"params": {}, "batch_stats": {}}
     for key, value in state.items():
         path = key.split(".")
         a = value.detach().cpu().numpy().astype(np.float32) if torch.is_tensor(value) else (
             np.asarray(value, np.float32))
         col, name = "params", path[-1]
+        owner = path[-2] if len(path) > 1 else ""
         if name in ("running_mean", "running_var"):
             col, name = "batch_stats", name.removeprefix("running_")
         elif name == "weight":
-            if a.ndim == 4:
+            if a.ndim == 4 and owner.endswith("upsample"):
+                a, name = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+            elif a.ndim == 4:
                 a, name = a.transpose(2, 3, 1, 0), "kernel"
+            elif a.ndim == 2 and owner in _EMBED:
+                name = "embedding"
+            elif a.ndim == 2 and owner in _CONV1X1X1:
+                a, name = a.T.reshape((1, 1, 1) + a.T.shape), "kernel"
             elif a.ndim == 2:
                 a, name = a.T, "kernel"
             elif a.ndim == 1:
                 name = "scale"
             else:
                 raise ValueError(f"unexpected weight shape {a.shape} at {key}")
-        elif name != "bias":
+        elif name not in ("bias", "gamma"):
             raise ValueError(f"no JAX leaf for {key}")
         node = tree[col]
         for p in path[:-1]:
@@ -203,3 +227,71 @@ def apply_bench_ckpt(directory: str, cfg, device=None, training: bool = False,
     cond = torch.from_numpy(ck.cond)[None].to(model.device)
     ref = None if ck.ref is None else torch.from_numpy(ck.ref)[None].to(model.device)
     return cfg, model, cond, ref, ck.meta
+
+
+# --------------------------------------------------------------- the writer
+
+_UNET, _GEN, _COND, _REF, _META = "unet.msgpack", "generator.msgpack", "cond.npy", "ref.npy", "meta.json"
+
+
+@contextlib.contextmanager
+def _writer_lock(directory: str):
+    """Exclusive advisory lock on `<directory>/.lock`: a second writer raises
+    instead of interleaving its weights with the first one's."""
+    os.makedirs(directory, exist_ok=True)
+    fd = os.open(os.path.join(directory, ".lock"), os.O_CREAT | os.O_RDWR)
+    try:
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError as e:
+            holder = os.pread(fd, 64, 0).decode(errors="replace").strip() or "?"
+            raise RuntimeError(f"bench-ckpt writer lock held (pid {holder}) for {directory}; "
+                               f"stop the other writer first") from e
+        os.ftruncate(fd, 0)
+        os.pwrite(fd, str(os.getpid()).encode(), 0)
+        yield
+    finally:
+        os.close(fd)
+
+
+def _atomic_write(path: str, data: bytes) -> None:
+    """Write to a temporary file, then rename it into place: a reader never
+    sees a torn file."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _fp16(tree: dict) -> dict:
+    return {k: _fp16(v) if isinstance(v, dict) else np.asarray(v).astype(np.float16) for k, v in tree.items()}
+
+
+def _npy(arr) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(arr.detach().cpu() if torch.is_tensor(arr) else arr, np.float32))
+    return buf.getvalue()
+
+
+def save_bench_ckpt(directory: str, unet_state: dict, lfae_state: dict, cond, ref=None,
+                    meta: dict | None = None) -> None:
+    """Write a bench checkpoint from the port's weights: `unet.msgpack` (the
+    UNet's state dict, in full), `generator.msgpack` (the generator of a
+    `FlowAE` state dict, without its pixelwise flow predictor, which serving
+    never applies), both float16 through :func:`to_jax_params`; `cond.npy`,
+    and `ref.npy` and `meta.json` when given. Every file is written
+    atomically under an exclusive writer lock. `load_bench_ckpt` of either
+    package reads it."""
+    lfae = to_jax_params(lfae_state)
+    gen = {col: {"generator": lfae_subtree(lfae, "generator", with_flow_predictor=False)[col]}
+           for col in ("params", "batch_stats")}
+    with _writer_lock(directory):
+        _atomic_write(os.path.join(directory, _UNET), msgpack_serialize(_fp16(to_jax_params(unet_state))))
+        _atomic_write(os.path.join(directory, _GEN), msgpack_serialize(_fp16(gen)))
+        _atomic_write(os.path.join(directory, _COND), _npy(cond))
+        if ref is not None:
+            _atomic_write(os.path.join(directory, _REF), _npy(ref))
+        if meta is not None:
+            _atomic_write(os.path.join(directory, _META), json.dumps(meta, indent=1).encode())

@@ -14,7 +14,8 @@ eval_flowautoenc}`) on the CPU at a tiny config.
 * The parsers: each JAX flag the port keeps has the JAX default; the
   replaced (`--platform`, `--matmul-precision` -> `--device`) and absent
   (`--warp-impl`) flags are not offered; each unported flag raises.
-* The three CLIs in a fresh interpreter with `cv2`, `imageio`, `PIL`,
+* The three CLIs (`eval_flowautoenc` with `--save-video`: the warp
+  lattices) in a fresh interpreter with `cv2`, `imageio`, `PIL`,
   `matplotlib`, `transformers` (and JAX) blocked in `sys.modules`: the
   card's installation (`test_dm` there without the metric extractors, which
   the in-process test runs).
@@ -176,7 +177,7 @@ def _jax_parser(script: str):
 REPLACED = {"platform": "device", "matmul_precision": "device"}
 ABSENT = {"warp_impl"}
 UNPORTED = (["--mesh", "dp=2"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-            ["--process-id", "0"], ["--loader", "grain"])
+            ["--process-id", "0"])
 
 
 @pytest.mark.parametrize("name,module", [("demo", demo), ("test_dm", test_dm),
@@ -214,7 +215,10 @@ res = t.run_demo(d + "/demo")
 assert len(res["gifs"]) == 2
 res = t.run_test_dm(d + "/dm", d + "/corpus", metrics=False)  # I3D / LPIPS run in-process above
 assert all(v == v for v in res.values())
-res = t.run_eval(d + "/eval", d + "/corpus")
+res = t.run_eval(d + "/eval", d + "/corpus", ["--save-video"])
+import os
+gifs = os.listdir(d + "/eval/eval_videos")  # warp lattices drawn without matplotlib
+assert gifs and all(open(d + "/eval/eval_videos/" + g, "rb").read(6) == b"GIF89a" for g in gifs)
 print("OK", sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None))
 """
 

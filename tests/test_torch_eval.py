@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_viz import assert_lattice_close
 from cvpr23_lfdm_tpu.data import loader as jloader
 from cvpr23_lfdm_tpu.eval import flowautoenc as jfae
 from cvpr23_lfdm_tpu.eval import i3d as ji3d
@@ -363,7 +364,7 @@ def test_viz_matches_jax(tmp_path):
     conf = rng.uniform(size=(8, 8, 1)).astype(np.float32)
     np.testing.assert_array_equal(tviz.conf2fig(conf, 32), jviz.conf2fig(conf, 32))
     grid = rng.uniform(-1, 1, size=(8, 8, 2)).astype(np.float32)
-    np.testing.assert_array_equal(tviz.grid2fig(grid, img_size=64), jviz.grid2fig(grid, img_size=64))
+    assert_lattice_close(tviz.grid2fig(grid, img_size=64), jviz.grid2fig(grid, img_size=64))
     # the port writes GIFs itself (one fixed palette) where the JAX package
     # calls imageio: the same frames and timing, each pixel the nearest
     # palette colour (within half a palette step of the frame, 255 / 5 / 2)

@@ -83,6 +83,30 @@ def test_eig2x2_matches_jax_incl_degenerate():
                                np.asarray(jeig.inv_3x3(jnp.asarray(m3))), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("angle", [0.0, 0.5 * np.pi, 0.25 * np.pi, 1.1])
+def test_eig2x2_small_eigenvalue_of_thin_covariances(angle):
+    """A thin region's smaller eigenvalue, 1e-4 to 1e-9 of the larger (the
+    card recorded 6.1e-9 against 0.35), against float64 `eigvalsh` of the
+    same fp32 matrix: within 1e-5 of itself, and never rounded to 0, where
+    the fp32 `tr / 2 - rad` of the JAX package cancels. The eigenvectors and
+    the larger eigenvalue stay within 1e-6 of the JAX package's."""
+    rng = np.random.RandomState(5)
+    n = 64
+    s1 = rng.uniform(0.01, 0.5, n)
+    s2 = s1 * 10.0 ** -rng.uniform(4, 9, n)
+    v = np.array([np.cos(angle), np.sin(angle)])
+    w = np.array([-v[1], v[0]])
+    covar = (s1[:, None, None] * np.outer(v, v) + s2[:, None, None] * np.outer(w, w)).astype(np.float32)
+    want = np.linalg.eigvalsh(covar.astype(np.float64))[:, ::-1]
+    u, s = eig2x2.eigh_2x2(T(covar))
+    s = s.numpy().astype(np.float64)
+    np.testing.assert_allclose(s[:, 1], want[:, 1], rtol=1e-5, atol=0)
+    assert (np.sign(s[:, 1]) == np.sign(want[:, 1])).all()
+    ju, js = jeig.eigh_2x2(jnp.asarray(covar))
+    np.testing.assert_allclose(s[:, 0], np.asarray(js)[:, 0], rtol=1e-6)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=1e-6)
+
+
 @pytest.mark.parametrize("scale", [0.25, 0.5, 1.0])
 def test_antialias_matches_jax(scale):
     x = np.random.RandomState(1).uniform(size=(2, 32, 24, 3)).astype(np.float32)

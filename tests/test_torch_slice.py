@@ -198,7 +198,9 @@ def test_port_imports_no_jax():
                 "data/__init__.py", "data/specs.py", "data/sampling.py", "data/io.py",
                 "data/augment.py", "data/native.py", "data/datasets.py", "data/synthetic.py",
                 "parallel/serving.py", "scripts/demo.py", "scripts/test_dm.py",
-                "scripts/eval_flowautoenc.py"):
+                "scripts/eval_flowautoenc.py", "data/preprocess.py", "data/grain_loader.py",
+                "utils/msgpack.py", "scripts/train_dm.py", "scripts/train_lfae.py",
+                "scripts/make_bench_ckpt.py", "scripts/preprocess.py"):
         assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:
