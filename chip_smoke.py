@@ -225,13 +225,31 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
 26. loader grain — `GrainLoader` (8 worker processes) on the DM dataset,
               B=5: seconds per batch against the thread loader's (16
               threads); `train_dm --loader grain` for 3 steps, then resumed
-              to 5 (gated: each step's batch equal to a straight stream's).
+              to 5 (gated: the batch each `train_step` is given equal to a
+              straight stream's; `fit` reads a batch ahead on the card).
 27. preprocess — which host libraries the installation has; `preprocess
               --dataset mug` on the corpus (gated: a split); `mhad` and
               `natops` on a raw tree (gated, without `cv2`: each raises the
               `ImportError` naming the AVI decoder, nothing else is caught;
               with `cv2`: the frame folders of MJPG AVIs it writes, 4 and 3 +
               4 frames).
+
+28. dp       — data parallelism through `init_distributed`, in rank
+              subprocesses (`dp_worker`). NCCL at world size 1 on cuda:0:
+              an all-reduce; `sample_video_sharded` (bf16, `pallas3`, B=2)
+              bit-equal to a direct `sample_video` from the same generator,
+              100 / 80 / 3 launches of rows 1 / 2 / 3; one bf16 `DMTrainer`
+              step on the `data` mesh (B=2), 10 + 10 of rows 4 / 5. Then two
+              ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+              GPU), fp32 with TF32 off, each its contiguous rows, against
+              one process: the B=2 video (`PATH_TOL`), one DM step at global
+              B=4 before Adam (loss and all-reduced gradients,
+              `TRAIN_PARITY_TOL`), one LFAE step at global B=8 with the
+              BatchNorm statistics over both ranks (losses and statistics
+              of the recipe, gradients of its smooth part, `DP_LFAE_TOL`);
+              `states_agree` after each step; rows 1-5 launched on each
+              rank, counted. Each rank's seconds per video and per step are
+              records, not gates.
 
 Every phase line carries `clock_s`, the seconds since the script started.
 Then one `kernels` line (per kernel: launches on its main path, and its
@@ -928,10 +946,11 @@ def check_headpacked(failures: list) -> dict:
     return totals
 
 
-def training_setup(dtype: str, batch: int, seed: int = 0):
+def training_setup(dtype: str, batch: int, seed: int = 0, mesh=None):
     """The MUG trainer at full width on the bench checkpoint (UNet and
-    generator encoder; seeded motion modules), a seeded batch and one fixed
-    draw of (t, noise, null mask)."""
+    generator encoder; seeded motion modules), on `mesh` (None: this
+    process alone), a seeded batch and one fixed draw of (t, noise, null
+    mask)."""
     import dataclasses
 
     import torch
@@ -945,7 +964,7 @@ def training_setup(dtype: str, batch: int, seed: int = 0):
                                                     temporal_attn_impl="pallas2"))
     cfg, model, _, _, meta = apply_bench_ckpt(
         os.path.join(ROOT, "assets", "bench_ckpt"), cfg, training=True, lfae_seed=seed)
-    trainer = DMTrainer(cfg, steps_per_epoch=93, model=model)
+    trainer = DMTrainer(cfg, steps_per_epoch=93, model=model, mesh=mesh)
     rng = np.random.RandomState(seed + 1)
     d, s = cfg.diffusion, cfg.lfae.frame_shape
     vid = rng.uniform(size=(batch, d.num_frames, s, s, 3)).astype(np.float32)
@@ -1146,14 +1165,16 @@ def run_train_parity(failures: list) -> None:
 # ---------------------------------------------------------------- LFAE (stage-1) training
 
 
-def lfae_trainer(seed: int = 0):
+def lfae_trainer(seed: int = 0, mesh=None):
     """`LFAETrainer` at the MUG config's full widths (fp32), the three nets
-    from `seed_lfae_weights(seed)`, the VGG19 from `seed_vgg_weights(seed)`."""
+    from `seed_lfae_weights(seed)`, the VGG19 from `seed_vgg_weights(seed)`,
+    on `mesh` (None: this process alone)."""
     from cvpr23_lfdm_torch.config import mug_config
     from cvpr23_lfdm_torch.train.lfae_trainer import LFAETrainer
 
     cfg = mug_config()
-    trainer = LFAETrainer(cfg, steps_per_epoch=LFAE_STEPS_PER_EPOCH, device="cuda", vgg_seed=seed)
+    trainer = LFAETrainer(cfg, steps_per_epoch=LFAE_STEPS_PER_EPOCH, device="cuda", vgg_seed=seed,
+                          mesh=mesh)
     return cfg, trainer, trainer.init_state(seed=seed)
 
 
@@ -2741,6 +2762,7 @@ def run_loader_grain(failures: list, work: str, root: str) -> None:
     from cvpr23_lfdm_torch.data import DMVideoDataset, PrefetchLoader, get_spec
     from cvpr23_lfdm_torch.data.grain_loader import GrainLoader
     from cvpr23_lfdm_torch.scripts import train_dm
+    from cvpr23_lfdm_torch.train.dm_trainer import DMTrainer
 
     cfg = mug_config()
     ds = DMVideoDataset(get_spec("mug"), root, "train", num_frames=F_FRAMES, image_size=TRAIN_SIZE,
@@ -2758,21 +2780,20 @@ def run_loader_grain(failures: list, work: str, root: str) -> None:
     grain.close()
     _, threads_s = per_batch(PrefetchLoader(ds, 5, num_workers=16, seed=TRAIN_CLI_SEED))
 
-    seen, batches = [], train_dm.dm_batches
+    seen, train_step = [], DMTrainer.train_step
 
-    def recorded(loader, embedder):
-        for b in batches(loader, embedder):
-            seen.append(b["real_vid"].copy())
-            yield b
+    def recorded(self, state, rng, batch, *a, **k):  # the batch each step trains on
+        seen.append(torch.as_tensor(batch["real_vid"]).cpu().numpy())
+        return train_step(self, state, rng, batch, *a, **k)
 
     log = os.path.join(work, "grain_dm")
     base = ["--synthetic", "--data-root", root, "--log-dir", log, "--loader", "grain"]
-    train_dm.dm_batches = recorded
+    DMTrainer.train_step = recorded
     try:
         first = train_dm.main(base + ["--num-steps", "3"])
         second = train_dm.main(base + ["--num-steps", "5", "--resume"])
     finally:
-        train_dm.dm_batches = batches
+        DMTrainer.train_step = train_step
     equal = [bool(np.array_equal(a, b["video"])) for a, b in zip(seen, straight)]
     line = {"phase": "loader grain", "batch": 5, "frames": F_FRAMES, "grain_workers": 8, "thread_workers": 16,
             "grain_s_per_batch": grain_s, "threads_s_per_batch": threads_s,
@@ -2891,6 +2912,299 @@ def run_entry_points(failures: list) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- data parallel (phase 28)
+
+DP_SEED = 20231018
+DP_VIDEO_BATCH = 2   # the sharded video: one row per rank of the gloo pair
+DP_DM_BATCH = 4      # the gloo pair's global DM batch (2 rows per rank)
+DP_LFAE_BATCH = 8    # the gloo pair's global LFAE batch (4 rows per rank)
+DP_TIMEOUT_S = 420   # each rank subprocess; its process group times out at 300 s
+DP_GROUP_TIMEOUT_S = 300
+DP_LFAE_TOL = {"loss_rel": 1e-4, "stats_rel": 1e-4, "grad_max_abs_rel": 2e-3}
+DP_VIDEO_LAUNCHES = {"fused_temporal_layer": TEMPORAL_PER_EVAL * DDIM_STEPS,
+                     "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3}
+DP_STEP_LAUNCHES = {"headpacked_attention_fwd": HEADPACKED_PER_EVAL,
+                    "headpacked_attention_bwd": HEADPACKED_PER_EVAL}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_ranks(mode: str, world: int) -> list:
+    """`dp_worker(mode, rank, ...)` in `world` subprocesses at once, joined
+    by a process group on a free localhost port: their results, rank 0
+    first, or the exit codes and error tails of a failed run."""
+    import tempfile
+
+    port, out = _free_port(), tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.dp_worker("
+                               f"{mode!r}, {r}, {world}, {port}, {out!r}))"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        path = os.path.join(out, f"rank{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            results.append({"rank": r, "exit": p.returncode, "stderr_tail": err.strip().splitlines()[-8:]})
+        else:
+            with open(path) as f:
+                results.append(json.load(f))
+    return results
+
+
+def dp_worker(mode: str, rank: int, world: int, port: int, out: str) -> int:
+    """One rank of the `dp` phase: joins the group through `init_distributed`
+    (NCCL for `nccl`, gloo for `gloo`, on cuda:0), runs `dp_nccl` or
+    `dp_gloo` and writes its result to `<out>/rank<r>.json`."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    from cvpr23_lfdm_torch.parallel import distributed as D
+
+    D.init_distributed(f"127.0.0.1:{port}", world, rank, backend=mode, device="cuda:0",
+                       timeout_s=DP_GROUP_TIMEOUT_S)
+    try:
+        result = {"nccl": dp_nccl, "gloo": dp_gloo}[mode](rank)
+    finally:
+        D.shutdown_distributed()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _synced(fn):
+    """`(fn(), seconds)`, the clock read after a synchronize on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _dp_requests(ref, cond):
+    """The request batch of the dp videos: the bench reference image twice,
+    with the class embedding and half of it."""
+    import torch
+
+    return ref.expand(DP_VIDEO_BATCH, -1, -1, -1), torch.cat([cond, 0.5 * cond])
+
+
+def dp_nccl(rank: int) -> dict:
+    """World size 1 over NCCL: an all-reduce; `sample_video_sharded` (bf16,
+    `pallas3`, B=2) against a direct `sample_video` from the same generator
+    (gated bit-equal), with the launches of rows 1-3; one bf16 `DMTrainer`
+    step on the `data` mesh (B=2), with the launches of rows 4 and 5."""
+    import torch
+    import torch.distributed as dist
+
+    from cvpr23_lfdm_torch.parallel.mesh import make_mesh
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded
+    from cvpr23_lfdm_torch.train.dm_trainer import step_generator
+
+    mesh = make_mesh()
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    res = {"rank": rank, "backend": dist.get_backend(), "mesh": [mesh.size, mesh.rank, str(mesh.device)],
+           "all_reduce": float(one)}
+    _, model, cond, ref, _ = serving_model("bfloat16")
+    refs, conds = _dp_requests(ref, cond)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(DP_SEED)  # noqa: E731
+    sample_video_sharded(model, mesh, refs, conds, 1.0, generator=gen())  # warm-up
+    reset_counters()
+    out, res["video_s"] = _synced(lambda: sample_video_sharded(model, mesh, refs, conds, 1.0, generator=gen()))
+    res["video_launches"] = counters()
+    direct = model.sample_video(refs, conds, 1.0, generator=gen())
+    res["video_bit_equal"] = all(torch.equal(out[k], direct[k]) for k in direct)
+    res["video_finite"] = all(torch_isfinite(v) for v in out.values())
+    del model, out, direct
+    torch.cuda.empty_cache()
+    _, trainer, data, _, _ = training_setup("bfloat16", DP_VIDEO_BATCH, mesh=mesh)
+    state = trainer.init_state()
+    trainer.train_step(state, step_generator(DP_SEED, 0, "cuda"), data)  # warm-up
+    reset_counters()
+    (_, m), res["step_s"] = _synced(lambda: trainer.train_step(state, step_generator(DP_SEED, 1, "cuda"), data))
+    res["step_launches"] = counters()
+    res["step_loss"] = float(m["loss"])
+    return res
+
+
+def _grad_gap(a: dict, b: dict) -> tuple:
+    """(largest |a - b| over every gradient, largest |b|)."""
+    return (max(float((a[n] - b[n]).abs().max()) for n in b), max(float(g.abs().max()) for g in b.values()))
+
+
+def dp_gloo(rank: int) -> dict:
+    """Two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+    card), fp32 with TF32 off, each rank its contiguous rows; rank 0 then
+    runs the same work in one process for the comparison while rank 1
+    waits at a barrier.
+
+    * `sample_video_sharded` at B=2 (one row per rank) against one
+      process's B=2 video from the same generator (gated at `PATH_TOL`).
+    * One DM step at global B=4 (`step_generator` draws at the global
+      shape): the all-reduced gradients and the loss against one process's
+      step on the 4 rows, before Adam (`TRAIN_PARITY_TOL`).
+    * One LFAE step at global B=8, the BatchNorm statistics over both
+      ranks, against one process (`DP_LFAE_TOL`): the recipe's losses and
+      running statistics, and the gradients of the step's smooth part (the
+      equivariance losses; perceptual weights 0). The recipe's gradient
+      is recorded, not gated: in one process, the same batch in another
+      row order moves it by ~2% of its largest value (a CPU reading at a
+      small config), so two runs that sum in another order differ there.
+    * `states_agree` after each step; the launches of rows 1-5 per rank."""
+    import dataclasses
+
+    import torch
+
+    from cvpr23_lfdm_torch.parallel import distributed as D
+    from cvpr23_lfdm_torch.parallel.mesh import make_mesh, shard_batch, states_agree
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded
+    from cvpr23_lfdm_torch.train.dm_trainer import DMTrainer, DMTrainState, step_generator
+    from cvpr23_lfdm_torch.train.lfae_trainer import LFAETrainer, LFAETrainState
+
+    mesh = make_mesh()
+    res = {"rank": rank, "mesh": [mesh.size, mesh.rank, str(mesh.device)]}
+    gen = lambda: torch.Generator(device="cuda").manual_seed(DP_SEED)  # noqa: E731
+    grads_of = lambda net: {n: p.grad.detach().clone() for n, p in net.named_parameters()  # noqa: E731
+                            if p.grad is not None}
+
+    # the fp32 video
+    _, model, cond, ref, _ = serving_model("float32")
+    refs, conds = _dp_requests(ref, cond)
+    reset_counters()
+    out, res["video_s"] = _synced(lambda: sample_video_sharded(model, mesh, refs, conds, 1.0, generator=gen()))
+    res["video_launches"] = counters()
+    if rank == 0:
+        one = model.sample_video(refs, conds, 1.0, generator=gen())
+        res["video_max_abs"] = {k: float((out[k] - one[k]).abs().max()) for k in one}
+    D.barrier()
+    del model, out
+    torch.cuda.empty_cache()
+
+    # one DM step
+    cfg, trainer, data, _, _ = training_setup("float32", DP_DM_BATCH, seed=3, mesh=mesh)
+    trainer.init_state()
+    weights = {k: v.detach().clone() for k, v in trainer.model.unet.state_dict().items()}
+    local = shard_batch(data, mesh, DP_DM_BATCH)
+    reset_counters()
+    (_, m), res["dm_step_s"] = _synced(lambda: trainer.train_step(
+        DMTrainState(0), step_generator(DP_SEED, 0, "cuda"), local))
+    res["dm_launches"] = counters()
+    res["dm_agree"] = states_agree(trainer.model.unet, mesh)
+    if rank == 0:
+        grads = grads_of(trainer.model.unet)
+        trainer.model.unet.load_state_dict(weights)
+        single = DMTrainer(cfg, steps_per_epoch=93, model=trainer.model)
+        single.init_state()
+        _, m1 = single.train_step(DMTrainState(0), step_generator(DP_SEED, 0, "cuda"), data)
+        gap, scale = _grad_gap(grads, grads_of(trainer.model.unet))
+        res["dm"] = {"loss": float(m["loss"]), "loss_one": float(m1["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "grad_norm_one": float(m1["grad_norm"]), "grad_max_abs_diff": gap, "grad_max_abs": scale}
+        del single, grads
+    D.barrier()
+    del trainer, weights
+    torch.cuda.empty_cache()
+
+    # one LFAE step: the recipe (losses, statistics), then its smooth part alone (gradients)
+    cfg, trainer, _ = lfae_trainer(seed=0, mesh=mesh)
+    smooth = cfg.replace(lfae_train=dataclasses.replace(
+        cfg.lfae_train, perceptual_weights=(0.0,) * len(cfg.lfae_train.perceptual_weights)))
+    weights = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    batch = lfae_batch(cfg, DP_LFAE_BATCH, seed=4)
+    local = shard_batch(batch, mesh, DP_LFAE_BATCH)
+
+    def lfae_step(tr, recipe, rows):
+        tr.model.load_state_dict(weights)
+        tr.init_state()
+        tr.cfg = cfg if recipe else smooth
+        _, m = tr.train_step(LFAETrainState(0), step_generator(DP_SEED, 0, "cuda"), rows)
+        stats = {k: v.clone() for k, v in tr.model.state_dict().items() if "running" in k}
+        return {k: float(v) for k, v in m.items()}, stats, grads_of(tr.model)
+
+    (losses, stats, recipe_grads), res["lfae_step_s"] = _synced(lambda: lfae_step(trainer, True, local))
+    _, _, grads = lfae_step(trainer, False, local)
+    res["lfae_agree"] = states_agree(trainer.model, mesh)
+    if rank == 0:
+        single = LFAETrainer(cfg, steps_per_epoch=LFAE_STEPS_PER_EPOCH, device="cuda")
+        losses1, stats1, recipe_grads1 = lfae_step(single, True, batch)
+        _, _, grads1 = lfae_step(single, False, batch)
+        gap, scale = _grad_gap(grads, grads1)
+        res["lfae"] = {
+            "losses": losses, "losses_one": losses1,
+            "stats_max_abs_diff": max(float((stats[k] - stats1[k]).abs().max()) for k in stats),
+            "stats_max_abs": max(float(v.abs().max()) for v in stats1.values()),
+            "grad_max_abs_diff": gap, "grad_max_abs": scale,
+            "recipe_grad_max_abs_diff_and_max_abs": _grad_gap(recipe_grads, recipe_grads1)}
+    D.barrier()
+    return res
+
+
+def run_dp(failures: list) -> None:
+    """Phase 28: data parallelism through `init_distributed` in rank
+    subprocesses (the card has one GPU): NCCL at world size 1, then two
+    gloo ranks sharing it (`dp_nccl`, `dp_gloo`)."""
+    (r,) = dp_ranks("nccl", 1)
+    line = {"phase": "dp", "what": "NCCL, world size 1, cuda:0", **r}
+    if "exit" not in r:
+        checks = {
+            "nccl_ok": r["backend"] == "nccl" and r["all_reduce"] == 1.0 and r["mesh"][:2] == [1, 0],
+            "video_bit_equal": r["video_bit_equal"] and r["video_finite"],
+            "video_launches_ok": all(r["video_launches"][k] == v for k, v in DP_VIDEO_LAUNCHES.items()),
+            "step_launches_ok": all(r["step_launches"][k] == v for k, v in DP_STEP_LAUNCHES.items()),
+            "step_loss_finite": bool(np.isfinite(r["step_loss"])),
+        }
+        line.update(checks, ok=all(checks.values()))
+    emit({**line, "gpu": gpu_line()})
+    if not line.get("ok"):
+        failures.append("dp nccl world 1")
+
+    ranks = dp_ranks("gloo", 2)
+    line = {"phase": "dp", "what": "gloo, 2 ranks on cuda:0, fp32", "ranks": ranks,
+            "tol": {"video": PATH_TOL, "dm": TRAIN_PARITY_TOL, "lfae": DP_LFAE_TOL}}
+    if all("exit" not in r for r in ranks):
+        r0, dm, lf = ranks[0], ranks[0]["dm"], ranks[0]["lfae"]
+        tol, ltol = TRAIN_PARITY_TOL, DP_LFAE_TOL
+        checks = {
+            "meshes_ok": [r["mesh"][:2] for r in ranks] == [[2, 0], [2, 1]],
+            "video_ok": all(v <= PATH_TOL for v in r0["video_max_abs"].values()),
+            "dm_ok": abs(dm["loss"] - dm["loss_one"]) <= tol["loss_rel"] * abs(dm["loss_one"])
+            and abs(dm["grad_norm"] - dm["grad_norm_one"]) <= tol["grad_norm_rel"] * dm["grad_norm_one"]
+            and dm["grad_max_abs_diff"] <= tol["grad_max_abs_rel"] * dm["grad_max_abs"],
+            "lfae_ok": all(abs(v - lf["losses_one"][k]) <= ltol["loss_rel"] * abs(lf["losses_one"][k])
+                           for k, v in lf["losses"].items())
+            and lf["stats_max_abs_diff"] <= ltol["stats_rel"] * lf["stats_max_abs"]
+            and lf["grad_max_abs_diff"] <= ltol["grad_max_abs_rel"] * lf["grad_max_abs"],
+            "states_agree": all(r["dm_agree"] and r["lfae_agree"] for r in ranks),
+            "launches_ok": all(
+                all(r["video_launches"][k] == v for k, v in DP_VIDEO_LAUNCHES.items())
+                and all(r["dm_launches"][k] == v for k, v in DP_STEP_LAUNCHES.items())
+                and r["dm_launches"]["warp_video"] >= 1 for r in ranks),
+        }
+        line.update(checks, ok=all(checks.values()))
+    emit({**line, "gpu": gpu_line()})
+    if not line.get("ok"):
+        failures.append("dp gloo 2 ranks")
+
+
 def main() -> int:
     try:
         import torch
@@ -2961,6 +3275,7 @@ def main() -> int:
     warp_launches = run_bench_warp(failures)
     totals["fused_temporal_layer_ablate"] = ablate_entry
     run_entry_points(failures)
+    run_dp(failures)
 
     csrc = "cvpr23_lfdm_torch/csrc/"
     jops = "cvpr23_lfdm_tpu/ops/"

@@ -143,18 +143,25 @@ class GrainLoader:
 
     # ------------------------------------------------------- checkpointing
 
-    def get_state(self) -> bytes:
-        """The iterator's position: batches consumed, with the seed, the
-        dataset's length and the batch layout it counts in."""
-        return json.dumps({"batches": self._consumed[0], "seed": self.seed, "length": len(self.dataset),
+    def get_state(self, batches: int | None = None) -> bytes:
+        """The iterator's position: batches consumed (or the position after
+        `batches` batches: the stream is a function of the batch number, so
+        a consumer that read ahead saves the batch it has reached), with the
+        seed, the dataset's length and the batch layout it counts in."""
+        batches = self._consumed[0] if batches is None else int(batches)
+        return json.dumps({"batches": batches, "seed": self.seed, "length": len(self.dataset),
                            "batch_size": self.batch_size, "shard": [self.shard_index, self.shard_count]},
                           sort_keys=True).encode()
 
     def set_state(self, state: bytes) -> None:
         """Seek to a position `get_state` returned: the next batch is the one
-        that followed it. Raises if the state belongs to another stream."""
+        that followed it. Raises if the state belongs to another stream. The
+        position counts global batches, so a state saved by one shard seeks
+        every shard of the same shard count (a multi-process run saves the
+        primary's)."""
         saved = json.loads(bytes(state).decode())
         own = json.loads(self.get_state().decode())
+        saved["shard"], own["shard"] = saved["shard"][1], own["shard"][1]
         for key in ("seed", "length", "batch_size", "shard"):
             if saved[key] != own[key]:
                 raise ValueError(f"loader state of another stream: {key} {saved[key]} != {own[key]}")

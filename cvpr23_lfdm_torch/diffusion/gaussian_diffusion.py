@@ -137,6 +137,23 @@ class GaussianDiffusion:
 
     # ---------------------------------------------------------------- loss
 
+    def training_draws(self, shape, with_cond: bool, generator, device, t=None, noise=None,
+                       null_mask=None):
+        """The random draws of `p_losses` for a batch of `shape` (the latent
+        volume's), in its order: timesteps `[B]` uniform in [0, T), the
+        gaussian (fp32) and, `with_cond`, the null-condition dropout `[B]`
+        with probability `null_cond_prob`; what is given is kept, and
+        nothing is drawn for it. A data-parallel step draws the global
+        batch's on every rank and keeps its own rows."""
+        b = shape[0]
+        if t is None:
+            t = torch.randint(0, self.timesteps, (b,), generator=generator, device=device)
+        if noise is None:
+            noise = _normal(shape, generator, device)
+        if with_cond and null_mask is None:
+            null_mask = torch.rand(b, generator=generator, device=device) < self.null_cond_prob
+        return t, noise, null_mask
+
     def p_losses(self, denoise, x_start, fea, cond=None, none_cond_mask=None,
                  t=None, noise=None, null_mask=None, generator=None):
         """Training objective.
@@ -155,21 +172,17 @@ class GaussianDiffusion:
         Returns `(scalar loss, {"pred_x0": thresholded x0 estimate (detached),
         "t": t})`.
         """
-        b = x_start.shape[0]
-        device = x_start.device
-        if t is None:
-            t = torch.randint(0, self.timesteps, (b,), generator=generator, device=device)
-        if noise is None:
-            noise = _normal(x_start.shape, generator, device).to(x_start.dtype)
+        drawn_noise = noise is None
+        t, noise, null_mask = self.training_draws(x_start.shape, cond is not None, generator,
+                                                  x_start.device, t, noise, null_mask)
+        if drawn_noise:
+            noise = noise.to(x_start.dtype)
         x_noisy = self.q_sample(x_start, t, noise)
 
         if cond is None:
             null_mask = None
-        else:
-            if null_mask is None:
-                null_mask = torch.rand(b, generator=generator, device=device) < self.null_cond_prob
-            if none_cond_mask is not None:
-                null_mask = null_mask | none_cond_mask
+        elif none_cond_mask is not None:
+            null_mask = null_mask | none_cond_mask
 
         pred = denoise(x_noisy, t, cond, null_mask, fea[:, None])
 

@@ -16,6 +16,7 @@ built in eval mode, as are the LFAE modules, the JAX `train=False` default;
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -79,23 +80,46 @@ class BatchNorm(nn.Module):
     and folds that same variance into `running_var` (`torch.nn.BatchNorm2d`
     keeps the unbiased one there, N/(N-1) larger); the running statistics
     move only in train mode, in fp32, outside the autograd graph. In eval
-    mode it normalises with the running statistics."""
+    mode it normalises with the running statistics.
+
+    `group` (set by :func:`sync_batchnorm`; the counterpart of flax's
+    `axis_name`): a process group over which the train-mode statistics are
+    taken, the reference's SyncBN. With more than one rank in it, the
+    per-channel sums of x and x² and the row count are summed over the
+    group (a sum whose backward is a sum, so the gradient reaches every
+    rank's rows), and the same biased variance follows from them on every
+    rank. `torch.nn.SyncBatchNorm` would keep the unbiased variance. With
+    no group, or a group of one, the statistics are the local ones above."""
 
     def __init__(self, c: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.group = None
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eval()
 
+    def _group_stats(self, x: torch.Tensor, axes: tuple):
+        """Mean and biased variance over the rows of every rank of `group`."""
+        from cvpr23_lfdm_torch.parallel.mesh import all_reduce_sum
+
+        c = x.shape[-1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([x.sum(dim=axes), x.square().sum(dim=axes), count]), self.group)
+        mean = sums[:c] / sums[2 * c]
+        return mean, ties.maximum(sums[c:2 * c] / sums[2 * c] - mean.square(), 0.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            var = ties.maximum(x.square().mean(dim=axes) - mean.square(), 0.0)
+            if self.group is not None and dist.get_world_size(self.group) > 1:
+                mean, var = self._group_stats(x, axes)
+            else:
+                mean = x.mean(dim=axes)
+                var = ties.maximum(x.square().mean(dim=axes) - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)
@@ -104,6 +128,15 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * inv + self.bias
+
+
+def sync_batchnorm(module: nn.Module, group):
+    """Take the train-mode statistics of every `BatchNorm` in `module` over
+    the ranks of `group` (None: each rank its own); returns `module`."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 class SameBlock2d(nn.Module):

@@ -4,6 +4,7 @@ The CLIs (`demo`, `test_dm`, `eval_flowautoenc`, `train_dm`,
 `train_lfae`, `make_bench_ckpt`, `preprocess`; counterpart of
 `scripts/_common.py`): :func:`base_parser` with `--device` in place of
 the JAX `--platform` / `--matmul-precision`, :func:`check_unported`,
+:func:`setup` and :func:`process_group` (the multi-process flags),
 :func:`resolve_attn_impl`, :func:`apply_lfae_dtype`,
 :func:`resolve_data_root`, :func:`load_text_embedder`, the weight
 loaders, and the training CLIs' resumable loader (:func:`train_loader`,
@@ -17,6 +18,7 @@ checkpoint, the two fused layers' serving shapes and their one bench
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -186,26 +188,85 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "serving, pallas2 for training; a named form is built as named")
     p.add_argument("--lfae-dtype", default="", choices=["", "float32", "bfloat16"],
                    help="LFAE compute dtype override (default: the preset's float32)")
-    p.add_argument("--coordinator", default="", help="multi-host: not ported")
-    p.add_argument("--num-processes", type=int, default=0, help="multi-host: not ported")
-    p.add_argument("--mesh", default="", help="multi-device serving mesh: not ported")
-    p.add_argument("--process-id", type=int, default=-1, help="multi-host: not ported")
+    p.add_argument("--coordinator", default="",
+                   help="multi-process: host:port of rank 0 (with --num-processes and "
+                        "--process-id; torchrun's environment does the same)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="multi-process: the number of processes, one per device")
+    p.add_argument("--mesh", default="",
+                   help="data mesh, 'dp=N' with N the number of processes (demo, test_dm: the "
+                        "request batch sharded; train_dm, train_lfae: the global batch); "
+                        "tp / sp are not ported")
+    p.add_argument("--process-id", type=int, default=-1, help="multi-process: this process's rank")
     return p
 
 
-def check_unported(args) -> None:
-    """A flag whose machinery is not ported raises, never silently ignored."""
-    if args.mesh or args.coordinator or args.num_processes > 1 or args.process_id >= 0:
-        raise SystemExit("--mesh / --coordinator / --num-processes / --process-id: multi-device "
-                         "is not ported yet (ROADMAP item 6)")
+def check_unported(args, multi_device: bool = False) -> None:
+    """A flag whose machinery is not ported raises, never silently ignored:
+    every multi-device flag unless the CLI takes them (`multi_device`), and
+    there a mesh with `tp` or `sp` above 1, and an incomplete set of the
+    multi-process flags."""
+    multi_process = bool(args.coordinator) or args.num_processes > 1 or args.process_id >= 0
+    if not multi_device:
+        if args.mesh or multi_process:
+            raise SystemExit("--mesh / --coordinator / --num-processes / --process-id: multi-device "
+                             "is not ported for this CLI (demo, test_dm, train_dm and train_lfae "
+                             "take them)")
+        return
+    from cvpr23_lfdm_torch.parallel.serving import parse_mesh_spec
+
+    try:
+        axes = parse_mesh_spec(args.mesh)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if axes.get("tp", 1) > 1 or axes.get("sp", 1) > 1:
+        raise SystemExit(f"--mesh {args.mesh!r}: the tp and sp axes are not ported yet (the "
+                         "tensor-parallel and spatial-partitioning slices, ROADMAP item 6)")
+    if multi_process and not (args.coordinator and args.num_processes > 1 and args.process_id >= 0):
+        raise SystemExit("a multi-process run needs --coordinator, --num-processes (> 1) and "
+                         "--process-id together (or torchrun's environment and none of them)")
+    world = args.num_processes if multi_process else int(os.environ.get("WORLD_SIZE", 1))
+    if axes.get("dp", world) != world:
+        raise SystemExit(f"--mesh {args.mesh!r}: dp must be the number of processes, one per "
+                         f"device ({world} in this run)")
 
 
-def setup(args) -> torch.device:
-    """Check the flags; the device the run takes (`--device`, else the card)."""
+def setup(args, multi_device: bool = False) -> torch.device:
+    """Check the flags; the device the run takes (`--device`, else the card).
+    `multi_device`: the CLI takes `--mesh` and the multi-process flags."""
     from cvpr23_lfdm_torch.utils.device import resolve_device
 
-    check_unported(args)
+    check_unported(args, multi_device)
     return resolve_device(args.device)
+
+
+@contextlib.contextmanager
+def process_group(args):
+    """This process in the process group of the multi-process flags (or of
+    torchrun's environment) for the body, on `--device`'s device (default
+    the card, `cuda:{LOCAL_RANK}`); leaves the group it joined at the end.
+    With neither, one process. Yields the rank's device."""
+    from cvpr23_lfdm_torch.parallel import distributed as D
+
+    before = D.process_count() > 1
+    info = D.init_distributed(args.coordinator or None, args.num_processes or None,
+                              args.process_id if args.process_id >= 0 else None, device=args.device)
+    try:
+        if info["process_count"] > 1:
+            print(f"multi-process: process {info['process_index']}/{info['process_count']}")
+        yield rank_device(args)
+    finally:
+        if not before:
+            D.shutdown_distributed()
+
+
+def rank_device(args) -> torch.device:
+    """This process's device: the one `init_distributed` chose for its rank,
+    else `--device` (default the card)."""
+    from cvpr23_lfdm_torch.parallel.distributed import local_device
+    from cvpr23_lfdm_torch.utils.device import resolve_device
+
+    return local_device() or resolve_device(args.device)
 
 
 def resolve_attn_impl(args, training: bool = False) -> str:
@@ -226,9 +287,12 @@ def apply_lfae_dtype(cfg, args):
 
 def resolve_data_root(args, image_size: int = 128) -> str:
     """`--data-root`, or with `--synthetic` a synthetic corpus there (or in a
-    new temporary directory) covering both splits."""
+    new temporary directory) covering both splits. In a multi-process run
+    rank 0 writes a corpus under `--data-root` and the others wait for it;
+    without `--data-root` each writes its own (the same, from `--seed`)."""
     from cvpr23_lfdm_torch.data.specs import get_spec
     from cvpr23_lfdm_torch.data.synthetic import make_synthetic_corpus
+    from cvpr23_lfdm_torch.parallel.distributed import barrier, is_primary
 
     root = args.data_root
     if args.synthetic:
@@ -236,13 +300,16 @@ def resolve_data_root(args, image_size: int = 128) -> str:
             import tempfile
 
             root = tempfile.mkdtemp(prefix=f"{args.dataset}_synth_")
-        if not os.path.isdir(root) or not os.listdir(root):
+        writer = is_primary() or not args.data_root
+        if writer and (not os.path.isdir(root) or not os.listdir(root)):
             os.makedirs(root, exist_ok=True)
             size = max(image_size, 320 if args.dataset == "natops" else image_size)
             spec = get_spec(args.dataset)
             subjects = list(spec.train_subjects[:2]) + list(spec.test_subjects[:2])
             make_synthetic_corpus(root, args.dataset, num_frames=16, size=size, seed=args.seed,
                                   subjects=subjects, classes=None, takes=2)
+        if args.data_root:
+            barrier()
         print(f"synthetic corpus at {root}")
     if not root:
         raise SystemExit("--data-root required (or pass --synthetic)")
@@ -333,24 +400,38 @@ def train_loader(args, dataset, batch_size: int, start_step: int, ckpt, threads:
     from: `--loader threads` seeks `PrefetchLoader` to `start_step` (its
     stream is a pure function of the batch number); `--loader grain` seeks
     `GrainLoader` (8 worker processes) to the state saved in the
-    checkpoint's sidecar. One process: the whole global batch."""
+    checkpoint's sidecar. Each process loads its `host_shard` of the
+    global batch `batch_size`."""
     from cvpr23_lfdm_torch.data import PrefetchLoader
     from cvpr23_lfdm_torch.data.grain_loader import GrainLoader
+    from cvpr23_lfdm_torch.parallel.distributed import host_shard
 
+    shard_index, shard_count, _ = host_shard(batch_size)
+    shards = {"shard_index": shard_index, "shard_count": shard_count}
     if args.loader != "grain":
         return PrefetchLoader(dataset, batch_size, num_workers=threads, seed=args.seed,
-                              start_batch=start_step)
-    loader = GrainLoader(dataset, batch_size, num_workers=8, seed=args.seed)
+                              start_batch=start_step, **shards)
+    loader = GrainLoader(dataset, batch_size, num_workers=8, seed=args.seed, **shards)
     extra = ckpt.load_extra() if start_step else None
     if extra and "grain_state" in extra:
         loader.set_state(extra["grain_state"])
     return loader
 
 
-def loader_extra(args, loader) -> dict:
-    """The checkpoint sidecar of a training CLI: the seed, and the
-    `--loader grain` position."""
+def loader_extra(args, loader, step: int) -> dict:
+    """The checkpoint sidecar of a training CLI after `step` steps: the
+    seed, and the `--loader grain` position (one batch per step; the
+    trainer's prefetch reads ahead of it)."""
     extra = {"seed": args.seed}
     if args.loader == "grain":
-        extra["grain_state"] = loader.get_state()
+        extra["grain_state"] = loader.get_state(step)
     return extra
+
+
+def train_mesh(args, device):
+    """The training CLIs' `data` mesh: every process (`--mesh dp=N` checks
+    N against their number)."""
+    from cvpr23_lfdm_torch.parallel.mesh import make_mesh
+    from cvpr23_lfdm_torch.parallel.serving import serving_mesh
+
+    return serving_mesh(args.mesh, device=device) if args.mesh else make_mesh(device=device)

@@ -13,6 +13,11 @@ weights load through `utils/checkpoint.py::load_{lfae,unet}_from_torch`, a
 directory through `CheckpointManager`. Sampling draws from one
 `torch.Generator` seeded by `--seed`, class after class.
 
+`--mesh dp=N` (N processes: `--coordinator`, `--num-processes`,
+`--process-id`, or torchrun): every class in one request batch, sharded
+over the processes (`parallel/serving.py::sample_video_sharded`); rank 0
+writes the GIFs.
+
 Usage: python -m cvpr23_lfdm_torch.scripts.demo [--device cpu] [--classes ...]
 """
 
@@ -26,7 +31,7 @@ import torch
 
 from cvpr23_lfdm_torch.scripts._common import (
     BENCH_CKPT, apply_lfae_dtype, base_parser, load_model_weights, load_text_embedder,
-    resolve_attn_impl, setup,
+    process_group, rank_device, resolve_attn_impl, setup,
 )
 
 
@@ -81,12 +86,13 @@ def build_model(cfg, args):
     smoke = not (args.lfae_ckpt or args.dm_ckpt)
     if smoke:
         args.allow_random_text = True
+    device = rank_device(args)
     if smoke and args.dataset == "mug" and os.path.isdir(BENCH_CKPT):
-        cfg, model, _, _, _ = apply_bench_ckpt(BENCH_CKPT, cfg, device=args.device)
+        cfg, model, _, _, _ = apply_bench_ckpt(BENCH_CKPT, cfg, device=device)
         print(f"smoke mode: trained-synthetic weights from {BENCH_CKPT}")
         return cfg, model
     torch.manual_seed(args.seed)
-    model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=args.device)
+    model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=device)
     load_model_weights(model, args.lfae_ckpt, args.dm_ckpt)
     return cfg, model
 
@@ -109,11 +115,18 @@ def panels(img: np.ndarray, out: dict, bi: int, id_grid: np.ndarray, size: int) 
 
 def run(cfg, args) -> dict:
     """Sample and write one GIF per class. Returns `{"gifs": [paths],
-    "outputs": {class: sample_video output as CPU numpy}}`."""
+    "outputs": {class: sample_video output as CPU numpy}}` (with `--mesh`:
+    every rank has the outputs, rank 0 the GIFs)."""
     from cvpr23_lfdm_torch.ops.grid import make_coordinate_grid
+    from cvpr23_lfdm_torch.parallel.distributed import is_primary
+    from cvpr23_lfdm_torch.parallel.mesh import replicate
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded, serving_mesh
     from cvpr23_lfdm_torch.utils.viz import save_gif
 
     cfg, model = build_model(cfg, args)
+    mesh = serving_mesh(args.mesh, device=model.device)
+    if mesh is not None:
+        replicate(model, mesh)
     size = cfg.lfae.frame_shape
     img = reference_image(args, size)
     ref_img = torch.from_numpy(img)[None].to(model.device)
@@ -125,24 +138,39 @@ def run(cfg, args) -> dict:
     id_grid = make_coordinate_grid((h, h)).numpy()
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     result = {"gifs": [], "outputs": {}}
+
+    def write(text, out, bi):
+        result["outputs"][text] = {k: v[bi:bi + 1] for k, v in out.items()}
+        if not is_primary():
+            return
+        name = text.replace(" ", "_").replace("(", "").replace(")", "")
+        path = os.path.join(out_dir, f"{name}.gif")
+        save_gif(path, panels(img, out, bi, id_grid, size))
+        print(f"sampled {text!r} -> {path}")
+        result["gifs"].append(path)
+
+    if mesh is not None:  # every class in one request batch, sharded over the ranks
+        conds = torch.from_numpy(embedder(classes)[0]).to(model.device)
+        out = sample_video_sharded(model, mesh, ref_img.expand(len(classes), -1, -1, -1), conds,
+                                   args.cond_scale, generator=gen)
+        out = {k: v.float().cpu().numpy() for k, v in out.items()}
+        print(f"sampled {len(classes)} classes on mesh {args.mesh}")
+        for bi, text in enumerate(classes):
+            write(text, out, bi)
+        return result
     for text in classes:
         cond, _ = embedder([text])
         out = model.sample_video(ref_img, torch.from_numpy(cond).to(model.device),
                                  args.cond_scale, generator=gen)
-        out = {k: v.float().cpu().numpy() for k, v in out.items()}
-        name = text.replace(" ", "_").replace("(", "").replace(")", "")
-        path = os.path.join(out_dir, f"{name}.gif")
-        save_gif(path, panels(img, out, 0, id_grid, size))
-        print(f"sampled {text!r} -> {path}")
-        result["gifs"].append(path)
-        result["outputs"][text] = out
+        write(text, {k: v.float().cpu().numpy() for k, v in out.items()}, 0)
     return result
 
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args)
-    return run(build_config(args), args)
+    setup(args, multi_device=True)
+    with process_group(args):
+        return run(build_config(args), args)
 
 
 if __name__ == "__main__":

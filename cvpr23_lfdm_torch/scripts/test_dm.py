@@ -13,6 +13,13 @@ The JAX CLI's report of which tiled-warp branch each decode took has no
 counterpart: the port's decode warp (row 3) is exact at every scale and has
 no windows to fit.
 
+`--mesh dp=N` (N processes: `--coordinator`, `--num-processes`,
+`--process-id`, or torchrun): every evaluated video is sampled in one
+request batch sharded over the processes
+(`parallel/serving.py::sample_video_sharded`), first, from the generator of
+`--seed`; rank 0 then runs the monitoring forwards and the metrics and
+writes the GIFs, the other ranks return `{}`.
+
 Usage: python -m cvpr23_lfdm_torch.scripts.test_dm [--device cpu] [--synthetic]
        [--random-metric-weights] [--num-videos 4]
 """
@@ -26,8 +33,8 @@ import numpy as np
 import torch
 
 from cvpr23_lfdm_torch.scripts._common import (
-    apply_lfae_dtype, base_parser, load_model_weights, load_text_embedder, resolve_attn_impl,
-    resolve_data_root, setup,
+    apply_lfae_dtype, base_parser, load_model_weights, load_text_embedder, process_group,
+    rank_device, resolve_attn_impl, resolve_data_root, setup,
 )
 
 
@@ -80,16 +87,17 @@ def build_model(cfg, args):
     from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion
     from cvpr23_lfdm_torch.utils.bench_ckpt import apply_bench_ckpt
 
+    device = rank_device(args)
     if args.bench_ckpt:
         try:
-            cfg, model, _, _, meta = apply_bench_ckpt(args.bench_ckpt, cfg, device=args.device,
+            cfg, model, _, _, meta = apply_bench_ckpt(args.bench_ckpt, cfg, device=device,
                                                       training=True)
         except FileNotFoundError as e:
             raise SystemExit(f"--bench-ckpt {args.bench_ckpt}: {e}") from None
         print(f"bench checkpoint loaded (objective {meta['objective']})")
     else:
         torch.manual_seed(args.seed)
-        model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=args.device, training=True)
+        model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=device, training=True)
         load_model_weights(model, args.lfae_ckpt, args.dm_ckpt)
     model.eval().requires_grad_(False)
     return cfg, model
@@ -127,13 +135,20 @@ def metric_fns(args, device):
 def run(cfg, args) -> dict:
     """Evaluate `--num-videos` held-out videos; returns the means
     (`rec_loss`, `warp_loss`, `psnr`, `ssim`, and with their extractors
-    `lpips`, `fvd`, `cfvd`, `sfvd`) and `videos`."""
+    `lpips`, `fvd`, `cfvd`, `sfvd`) and `videos` (with `--mesh`, on rank
+    0; `{}` on the others)."""
     from cvpr23_lfdm_torch.data import DMVideoDataset, get_spec
     from cvpr23_lfdm_torch.eval.metrics import FVD, psnr, ssim
+    from cvpr23_lfdm_torch.parallel.distributed import is_primary
+    from cvpr23_lfdm_torch.parallel.mesh import replicate
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded, serving_mesh
     from cvpr23_lfdm_torch.utils.viz import save_gif, to_uint8
 
     cfg, model = build_model(cfg, args)
     dev = model.device
+    mesh = serving_mesh(args.mesh, device=dev)
+    if mesh is not None:
+        replicate(model, mesh)
     root = resolve_data_root(args, cfg.lfae.frame_shape)
     embedder = load_text_embedder(args)
     dataset = DMVideoDataset(
@@ -148,6 +163,15 @@ def run(cfg, args) -> dict:
     rec, warp, psnrs, ssims, lpips_vals = [], [], [], [], []
     real_set, fake_set, classes, subjects = [], [], [], []
     n = min(args.num_videos, len(dataset))
+    sharded = None
+    if mesh is not None:  # every video in one request batch, sharded over the ranks
+        items = [dataset[i] for i in range(n)]
+        refs = torch.from_numpy(np.stack([it["video"][0] for it in items])).to(dev)
+        conds = torch.from_numpy(np.concatenate([embedder([it["text"]])[0] for it in items])).to(dev)
+        sharded = sample_video_sharded(model, mesh, refs, conds, args.cond_scale, generator=gen)
+        print(f"sampled {n} videos on mesh {args.mesh}")
+        if not is_primary():
+            return {}
     for i in range(n):
         item = dataset[i]
         vid = torch.from_numpy(item["video"])[None].to(dev)
@@ -155,7 +179,10 @@ def run(cfg, args) -> dict:
         cond = torch.from_numpy(embedder([item["text"]])[0]).to(dev)
         with torch.no_grad():
             loss, aux = model.loss(ref, vid, cond, generator=gen)
-        out = model.sample_video(ref, cond, args.cond_scale, generator=gen)
+        if sharded is not None:
+            out = {k: v[i:i + 1] for k, v in sharded.items()}
+        else:
+            out = model.sample_video(ref, cond, args.cond_scale, generator=gen)
         fake = out["out_vid"].float()
         rec.append(float(aux["rec_loss"]))
         warp.append(float(aux["rec_warp_loss"]))
@@ -195,8 +222,9 @@ def run(cfg, args) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args)
-    return run(build_config(args), args)
+    setup(args, multi_device=True)
+    with process_group(args):
+        return run(build_config(args), args)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,13 @@ video's GIF (`--sample-vid-freq`, `dm_samples`, `DMTrainer.sample_video`
 at cond_scale 1). Checkpoints go to `<log-dir>/dm_ckpt`
 (`CheckpointManager`: the trainer's state, the seed and with `--loader
 grain` the loader's position); `--resume` continues from the latest at its
-step, on the batch a straight run would take there. One process holds the
-whole batch (`--mesh` and the multi-host flags raise: ROADMAP item 6).
+step, on the batch a straight run would take there.
+
+Data parallel: N processes (`--coordinator host:port --num-processes N
+--process-id i`, or `torchrun --nproc-per-node N`), one per device. Each
+loads its `host_shard` of every global batch (`--batch-size`), the trainer
+averages the gradients over the `data` mesh of all of them (`--mesh dp=N`
+checks N), and only rank 0 writes checkpoints, images and GIFs.
 
 Usage: python -m cvpr23_lfdm_torch.scripts.train_dm [--device cpu] [--synthetic]
        [--num-steps N] [--batch-size B] [--lfae-ckpt DIR|.pth] [--resume]
@@ -33,8 +38,8 @@ import numpy as np
 import torch
 
 from cvpr23_lfdm_torch.scripts._common import (
-    apply_lfae_dtype, base_parser, lfae_state, load_text_embedder, loader_extra, resolve_attn_impl,
-    resolve_data_root, setup, train_loader,
+    apply_lfae_dtype, base_parser, lfae_state, load_text_embedder, loader_extra, process_group,
+    rank_device, resolve_attn_impl, resolve_data_root, setup, train_loader, train_mesh,
 )
 
 
@@ -101,14 +106,14 @@ def run(cfg, args) -> dict:
     and of each hook and of the GIFs' panels inside them)."""
     from cvpr23_lfdm_torch.data import DMVideoDataset, get_spec
     from cvpr23_lfdm_torch.ops.grid import make_coordinate_grid
+    from cvpr23_lfdm_torch.parallel.distributed import is_primary
     from cvpr23_lfdm_torch.train.dm_trainer import DMTrainer, step_generator
     from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager
-    from cvpr23_lfdm_torch.utils.device import resolve_device
     from cvpr23_lfdm_torch.utils.viz import (
         conf2fig, dm_training_gif, flow2fig, save_gif, save_image, tile_grid, to_uint8,
     )
 
-    device = resolve_device(args.device)
+    device = rank_device(args)
     tc = cfg.dm_train
     batch_size = args.batch_size or tc.batch_size
     root = resolve_data_root(args, cfg.lfae.frame_shape)
@@ -121,7 +126,8 @@ def run(cfg, args) -> dict:
     steps_per_epoch = max(1, len(dataset) // batch_size)
     num_steps = args.num_steps or steps_per_epoch * tc.max_epochs
 
-    trainer = DMTrainer(cfg, steps_per_epoch, model=build_model(cfg, args, device))
+    trainer = DMTrainer(cfg, steps_per_epoch, model=build_model(cfg, args, device),
+                        mesh=train_mesh(args, device))
     state = trainer.init_state(args.seed)
     ckpt = CheckpointManager(os.path.join(args.log_dir, "dm_ckpt"))
     start_step = 0
@@ -141,7 +147,8 @@ def run(cfg, args) -> dict:
         return {k: v.float().cpu().numpy() for k, v in d.items() if torch.is_tensor(v) and v.ndim}
 
     def monitored(cur_state, batch, step):
-        small = {k: v[:1] for k, v in batch.items() if hasattr(v, "ndim")}
+        small = {k: v[:1].cpu().numpy() if torch.is_tensor(v) else v[:1]
+                 for k, v in batch.items() if hasattr(v, "ndim")}
         aux = host(trainer.monitor(cur_state, step_generator(args.seed, step, trainer.device), small))
         return small, aux
 
@@ -194,17 +201,19 @@ def run(cfg, args) -> dict:
         os.makedirs(dirs["dm_samples"], exist_ok=True)
         save_gif(os.path.join(dirs["dm_samples"], f"B{batch_size:04d}_S{step:06d}.gif"), frames)
 
-    def checkpoint_fn(s):
-        ckpt.save(trainer.state_dict(s), step=s.step, extra=loader_extra(args, loader))
+    def checkpoint_fn(s):  # every rank: the primary writes, the others wait for it
+        ckpt.save(trainer.state_dict(s), step=s.step, extra=loader_extra(args, loader, s.step))
 
+    primary = is_primary()  # images and GIFs: rank 0 only
     t0 = time.perf_counter()
     try:
         state = trainer.fit(
             state, dm_batches(loader, embedder), num_steps, args.seed,
             checkpoint_fn=checkpoint_fn, checkpoint_every=tc.update_ckpt_freq,
-            viz_fn=viz_fn, viz_every=args.save_img_freq or tc.save_img_freq,
-            gif_fn=gif_fn, gif_every=args.save_vid_freq or tc.save_vid_freq,
-            sample_fn=sample_fn, sample_every=args.sample_vid_freq or tc.sample_vid_freq,
+            viz_fn=viz_fn if primary else None, viz_every=args.save_img_freq or tc.save_img_freq,
+            gif_fn=gif_fn if primary else None, gif_every=args.save_vid_freq or tc.save_vid_freq,
+            sample_fn=sample_fn if primary else None,
+            sample_every=args.sample_vid_freq or tc.sample_vid_freq,
             start_step=start_step,
         )
         if trainer.device.type == "cuda":
@@ -222,8 +231,9 @@ def run(cfg, args) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args)
-    return run(build_config(args), args)
+    setup(args, multi_device=True)
+    with process_group(args):
+        return run(build_config(args), args)
 
 
 if __name__ == "__main__":

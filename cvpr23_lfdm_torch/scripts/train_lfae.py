@@ -14,7 +14,13 @@ mode: on the card four row-3 warps per call) goes to `<log-dir>/lfae_imgs`.
 Checkpoints go to `<log-dir>/lfae_ckpt` (`CheckpointManager`: the trainer's
 state, the seed and with `--loader grain` the loader's position);
 `--resume` continues from the latest at its step. `train_dm --lfae-ckpt
-<log-dir>/lfae_ckpt` reads the result. One process holds the whole batch.
+<log-dir>/lfae_ckpt` reads the result.
+
+Data parallel: N processes (`--coordinator host:port --num-processes N
+--process-id i`, or `torchrun --nproc-per-node N`), one per device, each
+loading its `host_shard` of every global batch; the BatchNorm statistics
+and the gradients are taken over all of them (`--mesh dp=N` checks N), and
+only rank 0 writes checkpoints and boards.
 
 Usage: python -m cvpr23_lfdm_torch.scripts.train_lfae [--device cpu] [--synthetic]
        [--num-steps N] [--batch-size B] [--warm-start RegionMM.pth] [--resume]
@@ -28,7 +34,8 @@ import time
 import torch
 
 from cvpr23_lfdm_torch.scripts._common import (
-    apply_lfae_dtype, base_parser, loader_extra, resolve_data_root, setup, train_loader,
+    apply_lfae_dtype, base_parser, loader_extra, process_group, rank_device, resolve_data_root, setup,
+    train_loader, train_mesh,
 )
 
 
@@ -60,6 +67,7 @@ def run(cfg, args) -> dict:
     "hook_s", "avd_params"}`."""
     from cvpr23_lfdm_torch.data import ClipAugment, DatasetRepeater, LFAEPairDataset, get_spec
     from cvpr23_lfdm_torch.models.avd_network import AVDNetwork
+    from cvpr23_lfdm_torch.parallel.distributed import is_primary
     from cvpr23_lfdm_torch.train.lfae_trainer import LFAETrainer
     from cvpr23_lfdm_torch.train.vgg import convert_torchvision_vgg19
     from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager, load_lfae_from_torch
@@ -76,7 +84,8 @@ def run(cfg, args) -> dict:
     steps_per_epoch = max(1, len(dataset) // batch_size)
     num_steps = args.num_steps or steps_per_epoch * tc.max_epochs
 
-    trainer = LFAETrainer(cfg, steps_per_epoch, device=args.device)
+    device = rank_device(args)
+    trainer = LFAETrainer(cfg, steps_per_epoch, device=device, mesh=train_mesh(args, device))
     if args.vgg_weights:
         sd = torch.load(args.vgg_weights, map_location="cpu", weights_only=True)
         trainer.vgg.load_state_dict(convert_torchvision_vgg19(
@@ -114,17 +123,17 @@ def run(cfg, args) -> dict:
         out = _host(trainer.reconstruct(cur_state, batch["source"][:1], batch["driving"][:1]))
         os.makedirs(viz_dir, exist_ok=True)
         save_image(os.path.join(viz_dir, f"step_{step:07d}.png"),
-                   viz.visualize(batch["source"], batch["driving"], out))
+                   viz.visualize(_host(batch["source"]), _host(batch["driving"]), out))
         hook_s[0] += time.perf_counter() - t0
 
-    def checkpoint_fn(s):
-        ckpt.save(trainer.state_dict(s), step=s.step, extra=loader_extra(args, loader))
+    def checkpoint_fn(s):  # every rank: the primary writes, the others wait for it
+        ckpt.save(trainer.state_dict(s), step=s.step, extra=loader_extra(args, loader, s.step))
 
     t0 = time.perf_counter()
     try:
         state = trainer.fit(
             state, iter(loader), num_steps, args.seed, checkpoint_fn=checkpoint_fn,
-            checkpoint_every=tc.update_ckpt_freq, viz_fn=viz_fn,
+            checkpoint_every=tc.update_ckpt_freq, viz_fn=viz_fn if is_primary() else None,
             viz_every=args.save_img_freq or tc.save_img_freq, start_step=start_step,
         )
         if trainer.device.type == "cuda":
@@ -142,8 +151,9 @@ def run(cfg, args) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args)
-    return run(build_config(args), args)
+    setup(args, multi_device=True)
+    with process_group(args):
+        return run(build_config(args), args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,5 @@
-"""DM trainer: one loop for MUG/MHAD/NATOPS on one device (counterpart of
-`cvpr23_lfdm_tpu/train/dm_trainer.py`; mesh, sharding and prefetch belong
-to the multi-device slice).
+"""DM trainer: one loop for MUG/MHAD/NATOPS on one device or over a `data`
+mesh of processes (counterpart of `cvpr23_lfdm_tpu/train/dm_trainer.py`).
 
 The trainer owns the model (`FlowDiffusion` in its training form: frozen
 LFAE, trainable UNet with fp32 parameters and gradients) and the
@@ -8,6 +7,14 @@ optimizer; `DMTrainState` is the step counter that indexes the learning
 rate schedule and the per-step random stream. A batch is a dict of numpy
 arrays or tensors: `ref_img [B, H, W, 3]`, `real_vid [B, F, H, W, 3]`,
 `cond [B, cond_dim]` and optionally `none_cond_mask [B]`.
+
+On a mesh of N ranks (`parallel/mesh.py`) each rank is given its own
+contiguous B/N rows of the global batch (the loaders' `host_shard`). It
+draws the step's timesteps, noise and null-condition dropout at the
+global batch's shape from the step's generator, as one process would, and
+keeps its own rows; after `backward` the gradients are averaged over the
+ranks before Adam, so every rank takes the one-process step on the global
+batch, up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ import torch
 
 from cvpr23_lfdm_torch.config import ExperimentConfig
 from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion, build_unet
+from cvpr23_lfdm_torch.parallel.mesh import (
+    check_device, device_prefetch, local_rows, make_mesh, mean_gradients, mean_metrics, replicate,
+)
 from cvpr23_lfdm_torch.train.optim import MultistepAdam
 
 
@@ -47,15 +57,19 @@ class DMTrainer:
       model: a `FlowDiffusion(..., training=True)` with its frozen LFAE
         weights loaded; built from `cfg` on `device` when None (the CUDA
         card unless `device` says otherwise), with random LFAE weights.
+      mesh: the `data` mesh (`parallel/mesh.py::make_mesh`) on the model's
+        device; None: this process alone.
     """
 
     def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int,
-                 model: FlowDiffusion | None = None, device=None):
+                 model: FlowDiffusion | None = None, device=None, mesh=None):
         self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
         if model is None:
             model = FlowDiffusion(cfg.lfae, cfg.diffusion, device=device, training=True)
         self.model = model
         self.device = model.device
+        self.mesh = make_mesh(1, device=self.device) if mesh is None else mesh
+        check_device(self.mesh, self.device)
         self._new_optimizer()
 
     def _new_optimizer(self) -> None:
@@ -70,13 +84,15 @@ class DMTrainer:
     def init_state(self, seed: int | None = None) -> DMTrainState:
         """A fresh run: step 0 and new Adam moments. With `seed`, the UNet
         is re-initialised from it; with None its present weights (a loaded
-        checkpoint) are the starting point."""
+        checkpoint) are the starting point. On a mesh, rank 0's weights are
+        then broadcast to every rank."""
         if seed is not None:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(seed)
                 fresh = build_unet(self.cfg.lfae, self.cfg.diffusion, training=True)
             self.model.unet.load_state_dict(fresh.state_dict())
         self._new_optimizer()
+        replicate(self.model, self.mesh)
         return DMTrainState(step=0)
 
     # ------------------------------------------------------------ checkpoint
@@ -92,10 +108,13 @@ class DMTrainer:
         """Restore a :meth:`state_dict` (e.g. `CheckpointManager.restore(...,
         map_location=trainer.device)`): the UNet, then a new optimizer over
         its parameters, then the saved moments into it, in that order (a new
-        optimizer made after the load would start Adam afresh)."""
+        optimizer made after the load would start Adam afresh). On a mesh,
+        rank 0's weights and moments are then broadcast to every rank."""
         self.model.unet.load_state_dict(saved["unet"])
         self._new_optimizer()
         self.optimizer.load_state_dict(saved["optimizer"])
+        replicate(self.model, self.mesh)
+        replicate(self.optimizer, self.mesh)
         return DMTrainState(step=int(saved["step"]))
 
     def _to_device(self, batch: dict) -> dict:
@@ -107,14 +126,20 @@ class DMTrainer:
                    with_monitoring: bool = False, t=None, noise=None, null_mask=None):
         """One optimization step on the diffusion loss. `rng` feeds the
         timestep, noise and null-condition draws unless `t`, `noise` and
-        `null_mask` inject them. `with_monitoring` adds the decode of the
+        `null_mask` inject them (on a mesh: the global batch's, of which
+        this rank keeps its rows). `with_monitoring` adds the decode of the
         predicted x0 and its reconstruction losses (logging only: the
         gradient does not change).
 
         Returns `(state, metrics)`: `loss`, `grad_norm`, `lr` (and
         `rec_loss`, `rec_warp_loss`), loss values as 0-d tensors on the
-        device."""
+        device, averaged over the mesh."""
         batch = self._to_device(batch)
+        if self.mesh.size > 1:
+            d = self.cfg.diffusion
+            shape = (batch["cond"].shape[0] * self.mesh.size, d.num_frames, d.img_size, d.img_size, 3)
+            draws = self.model.diffusion.training_draws(shape, True, rng, self.device, t, noise, null_mask)
+            t, noise, null_mask = (local_rows(v, self.mesh) for v in draws)
         self.optimizer.zero_grad()
         loss, aux = self.model.loss(
             batch["ref_img"], batch["real_vid"], batch["cond"], batch.get("none_cond_mask"),
@@ -122,6 +147,7 @@ class DMTrainer:
             t=t, noise=noise, null_mask=null_mask, generator=rng,
         )
         aux["loss"].backward()
+        mean_gradients(self.model.unet.parameters(), self.mesh)
         grads = [p.grad for p in self.model.unet.parameters() if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
@@ -130,6 +156,7 @@ class DMTrainer:
         if with_monitoring:
             metrics["rec_loss"] = aux["rec_loss"]
             metrics["rec_warp_loss"] = aux["rec_warp_loss"]
+        metrics = mean_metrics(metrics, self.mesh, ("loss", "rec_loss", "rec_warp_loss"))
         return DMTrainState(step=state.step + 1), metrics
 
     # ------------------------------------------------------------------ sample
@@ -161,8 +188,11 @@ class DMTrainer:
 
         `start_step` resumes: the loop runs only the remaining
         `num_steps - start_step` steps, and step `i` draws from
-        `step_generator(seed, i)` whatever step the run started at.
+        `step_generator(seed, i)` whatever step the run started at. The
+        batches go to the device one step ahead (`device_prefetch`); on a
+        mesh each is this rank's rows.
         """
+        batches = device_prefetch(batches, self.mesh)
         t0 = time.perf_counter()
         for i in range(start_step, num_steps):
             batch = next(batches)
@@ -172,7 +202,7 @@ class DMTrainer:
             log_now = bool(log_every and (i + 1) % log_every == 0)
             state, metrics = self.train_step(
                 state, step_generator(seed, i, self.device), batch, with_monitoring=log_now)
-            if log_now:
+            if log_now and self.mesh.rank == 0:
                 dt = time.perf_counter() - t0
                 print(
                     f"step {state.step}: loss {float(metrics['loss']):.4f} "

@@ -1,12 +1,18 @@
 """Stage-1 (LFAE) trainer: reconstruction plus equivariance, on one device
-(counterpart of `cvpr23_lfdm_tpu/train/lfae_trainer.py`; data parallelism
-and synchronised BatchNorm belong to the multi-device slice).
+or over a `data` mesh of processes (counterpart of
+`cvpr23_lfdm_tpu/train/lfae_trainer.py`).
 
 One step updates the region predictor, the background predictor and the
 generator together: Adam (lr 2e-4, betas (0.5, 0.999)) under the epoch
 milestones of `cfg.lfae_train`, with BatchNorm in train mode (batch
 statistics, running statistics moved as flax moves them). A batch is a dict
 of numpy arrays or tensors `source`, `driving`: `[B, H, W, 3]` in [0, 1].
+
+On a mesh of N ranks each rank is given its contiguous B/N rows. The
+train-mode BatchNorms take their statistics over every rank's rows
+(`models/blocks.py::sync_batchnorm`, the reference's SyncBN), the TPS
+transform is drawn for the global batch and each rank keeps its rows, and
+the gradients are averaged over the ranks before Adam.
 """
 
 from __future__ import annotations
@@ -18,7 +24,11 @@ from typing import Iterator
 import torch
 
 from cvpr23_lfdm_torch.config import ExperimentConfig
+from cvpr23_lfdm_torch.models.blocks import sync_batchnorm
 from cvpr23_lfdm_torch.models.flow_autoenc import FlowAE, seed_lfae_weights
+from cvpr23_lfdm_torch.parallel.mesh import (
+    check_device, device_prefetch, local_rows, make_mesh, mean_gradients, mean_metrics, replicate,
+)
 from cvpr23_lfdm_torch.train.dm_trainer import step_generator
 from cvpr23_lfdm_torch.train.losses import (
     TPSTransform, equivariance_losses, perceptual_pyramid_loss,
@@ -60,6 +70,8 @@ class LFAETrainer:
       vgg_seed: the seed of the VGG19's weights (`seed_vgg_weights`; no
         ImageNet weights are downloaded). Weights the user supplies load
         with `trainer.vgg.load_state_dict(convert_torchvision_vgg19(sd))`.
+      mesh: the `data` mesh (`parallel/mesh.py::make_mesh`) on `device`;
+        None: this process alone.
 
     The per-step TPS draw comes from `step_generator(seed, step)`, a
     `torch.Generator` seeded with (seed, step): a resumed run replays the
@@ -68,13 +80,16 @@ class LFAETrainer:
     the same transform into both.
     """
 
-    def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int, device=None, vgg_seed: int = 0):
+    def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int, device=None, vgg_seed: int = 0,
+                 mesh=None):
         self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
         self.device = resolve_device(device)
-        self.model = LFAEReconstruction(cfg.lfae).to(self.device)
+        self.mesh = make_mesh(1, device=self.device) if mesh is None else mesh
+        check_device(self.mesh, self.device)
+        self.model = sync_batchnorm(LFAEReconstruction(cfg.lfae).to(self.device), self.mesh.group)
         vgg = Vgg19Features()
         seed_vgg_weights(vgg, vgg_seed)
-        self.vgg = vgg.to(self.device).requires_grad_(False)
+        self.vgg = replicate(vgg.to(self.device).requires_grad_(False), self.mesh)
         self._new_optimizer()
 
     def _new_optimizer(self) -> None:
@@ -88,12 +103,14 @@ class LFAETrainer:
         """A fresh run: step 0 and new Adam moments. With `seed`, the three
         nets are re-initialised from it (`seed_lfae_weights`: seeded
         kernels, identity heads, BatchNorm at its initial values); with None
-        their present weights are the starting point."""
+        their present weights are the starting point. On a mesh, rank 0's
+        weights are then broadcast to every rank."""
         if seed is not None:
             fresh = FlowAE(self.cfg.lfae)
             seed_lfae_weights([fresh.region_predictor, fresh.bg_predictor, fresh.generator], seed)
             self.model.load_state_dict(fresh.state_dict())
         self._new_optimizer()
+        replicate(self.model, self.mesh)
         return LFAETrainState(step=0)
 
     def load_state(self, variables: dict) -> LFAETrainState:
@@ -101,6 +118,7 @@ class LFAETrainer:
         "batch_stats": ...}` (numpy arrays), through `from_jax_params`."""
         self.model.load_state_dict(from_jax_params(variables))
         self._new_optimizer()
+        replicate(self.model, self.mesh)
         return LFAETrainState(step=0)
 
     # ------------------------------------------------------------ checkpoint
@@ -114,10 +132,13 @@ class LFAETrainer:
 
     def load_state_dict(self, saved: dict) -> LFAETrainState:
         """Restore a :meth:`state_dict`: the nets, then a new optimizer over
-        their parameters, then the saved moments into it."""
+        their parameters, then the saved moments into it; on a mesh, rank
+        0's are then broadcast to every rank."""
         self.model.load_state_dict(saved["model"])
         self._new_optimizer()
         self.optimizer.load_state_dict(saved["optimizer"])
+        replicate(self.model, self.mesh)
+        replicate(self.optimizer, self.mesh)
         return LFAETrainState(step=int(saved["step"]))
 
     def _to_device(self, batch: dict) -> dict:
@@ -129,11 +150,16 @@ class LFAETrainer:
     def losses(self, rng: torch.Generator | None, source, driving, transform=None):
         """The training forward and its weighted losses. Returns `(losses,
         generated)`; `losses` has `perceptual`, `equivariance_shift` and
-        `equivariance_affine`."""
+        `equivariance_affine`. `transform` (else drawn from `rng`) is the
+        global batch's; on a mesh this rank keeps its rows of it."""
         tc = self.cfg.lfae_train
         if transform is None:
-            transform = TPSTransform.sample(rng, source.shape[0], tc.sigma_affine, tc.sigma_tps,
-                                            tc.points_tps, device=self.device)
+            transform = TPSTransform.sample(rng, source.shape[0] * self.mesh.size, tc.sigma_affine,
+                                            tc.sigma_tps, tc.points_tps, device=self.device)
+        if self.mesh.size > 1:
+            cpar = transform.control_params
+            transform = TPSTransform(local_rows(transform.theta, self.mesh), transform.control_points,
+                                     None if cpar is None else local_rows(cpar, self.mesh))
         generated, driving_params, transformed_params = self.model(source, driving, transform)
         perceptual = perceptual_pyramid_loss(self.vgg, generated["prediction"], driving,
                                              tc.scales, tc.perceptual_weights)
@@ -148,18 +174,20 @@ class LFAETrainer:
     def train_step(self, state: LFAETrainState, rng: torch.Generator | None, batch: dict,
                    transform: TPSTransform | None = None):
         """One optimization step. `rng` draws the TPS transform unless
-        `transform` injects one. Returns `(state, metrics)`: the three
-        losses and `total`, 0-d tensors on the device."""
+        `transform` injects one (the global batch's). Returns `(state,
+        metrics)`: the three losses and `total`, 0-d tensors on the device,
+        averaged over the mesh."""
         batch = self._to_device(batch)
         self.model.train()
         self.optimizer.zero_grad()
         losses, _ = self.losses(rng, batch["source"], batch["driving"], transform)
         total = sum(losses.values())
         total.backward()
+        mean_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step(state.step)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
-        return LFAETrainState(step=state.step + 1), metrics
+        return LFAETrainState(step=state.step + 1), mean_metrics(metrics, self.mesh, list(metrics))
 
     # ------------------------------------------------------------------ eval
 
@@ -179,14 +207,17 @@ class LFAETrainer:
         """Step-count-based loop with `viz_fn(state, batch, step)` and
         `checkpoint_fn(state)` hooks. `start_step` resumes: the loop runs only
         the remaining `num_steps - start_step` steps, and step `i` draws from
-        `step_generator(seed, i)` whatever step the run started at."""
+        `step_generator(seed, i)` whatever step the run started at. The
+        batches' `source` and `driving` go to the device one step ahead
+        (`device_prefetch`); on a mesh each batch is this rank's rows."""
+        batches = device_prefetch(batches, self.mesh, keys=("source", "driving"))
         t0 = time.perf_counter()
         for i in range(start_step, num_steps):
             batch = next(batches)
             if viz_fn and viz_every and (i + 1) % viz_every == 0:
                 viz_fn(state, batch, i + 1)
             state, m = self.train_step(state, step_generator(seed, i, self.device), batch)
-            if log_every and (i + 1) % log_every == 0:
+            if log_every and (i + 1) % log_every == 0 and self.mesh.rank == 0:
                 dt = (time.perf_counter() - t0) / log_every
                 print(f"lfae step {state.step}: total {float(m['total']):.4f} "
                       f"perc {float(m['perceptual']):.4f} "

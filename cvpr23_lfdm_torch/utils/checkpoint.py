@@ -11,7 +11,10 @@ name and moved into place with `os.replace`, so a crash mid-write leaves the
 previous file whole. A state is a (nested) dict of tensors, numbers and the
 containers an optimizer's `state_dict` holds; tensors are saved from the
 CPU, and `restore` reads them back with `weights_only=True` onto the device
-it is given.
+it is given. In a multi-process run every rank calls `save` and `restore`:
+only the primary (rank 0) writes, and every rank passes a barrier after a
+save and before a restore reads, so no rank reads a file that is still
+being written.
 
 `load_torch_state_dicts`, `load_lfae_from_torch` and `load_unet_from_torch`
 read the reference's released checkpoints (`RegionMM.pth`, `flowdiff.pth`)
@@ -28,6 +31,7 @@ import os
 
 import torch
 
+from cvpr23_lfdm_torch.parallel.distributed import barrier, is_primary
 from cvpr23_lfdm_torch.utils.torch_convert import convert_lfae_checkpoint, convert_unet3d
 
 
@@ -67,21 +71,21 @@ class CheckpointManager:
         `extra` is a small JSON-serializable sidecar (host-side resume
         state: data-loader position, host RNG seed, ...) written atomically
         next to the state as `<name>.extra.json`; bytes values are
-        base64-encoded."""
+        base64-encoded. Only the primary writes; every rank returns after
+        the write, with the same path."""
         if step is None and not rolling:
             raise ValueError("save() needs a step, rolling=True, or both")
-        state = _to_cpu(state)
-        if step is not None:
-            name = f"step_{int(step):08d}"
-            path = self._write_state(name, state)
-            if extra is not None:
-                self._write_extra(name, extra)
-            self._gc()
-        if rolling:
-            path = self._write_state("latest", state)
-            if extra is not None:
-                self._write_extra("latest", extra)
-        return path
+        names = ([f"step_{int(step):08d}"] if step is not None else []) + (["latest"] if rolling else [])
+        if is_primary():
+            state = _to_cpu(state)
+            for name in names:
+                self._write_state(name, state)
+                if extra is not None:
+                    self._write_extra(name, extra)
+                if name != "latest":
+                    self._gc()
+        barrier()
+        return self._path(f"{names[-1]}.pt")
 
     def _write_extra(self, name: str, extra: dict) -> None:
         def enc(v):
@@ -113,6 +117,7 @@ class CheckpointManager:
         """The state saved as `name` (`latest` or `step_<N:08d>`), its
         tensors on `map_location` (e.g. the trainer's device; None: the
         CPU)."""
+        barrier()
         return torch.load(self._path(f"{name}.pt"), map_location=map_location or "cpu",
                           weights_only=True)
 

@@ -178,6 +178,22 @@ REPLACED = {"platform": "device", "matmul_precision": "device"}
 ABSENT = {"warp_impl"}
 UNPORTED = (["--mesh", "dp=2"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
             ["--process-id", "0"])
+# the CLIs that take the multi-device flags (demo, test_dm, train_dm,
+# train_lfae): the flags that still raise, and what they say
+MULTI_DEVICE_ERRORS = ((["--mesh", "tp=2"], "not ported"), (["--mesh", "dp=1,sp=2"], "not ported"),
+                       (["--mesh", "dp=2"], "number of processes"),
+                       (["--mesh", "zz=2"], "unknown mesh axis"),
+                       (["--coordinator", "localhost:1234"], "together"),
+                       (["--num-processes", "2"], "together"), (["--process-id", "0"], "together"))
+
+
+def assert_multi_device_flags(module, multi_device: bool):
+    """Each flag that cannot run here raises before any work: every
+    multi-device flag where the CLI does not take them, else the table."""
+    cases = MULTI_DEVICE_ERRORS if multi_device else [(f, "not ported") for f in UNPORTED]
+    for flags, message in cases:
+        with pytest.raises(SystemExit, match=message):
+            module.main(["--device", "cpu", *flags])
 
 
 @pytest.mark.parametrize("name,module", [("demo", demo), ("test_dm", test_dm),
@@ -197,9 +213,7 @@ def test_parser_keeps_the_jax_flags(name, module):
                 tuple(action.default) if isinstance(action.default, list) else action.default), dest
             assert ours[dest].option_strings == action.option_strings, dest
     assert ours["device"].default is None  # the card unless the caller says otherwise
-    for flags in UNPORTED:
-        with pytest.raises(SystemExit, match="not ported"):
-            module.main(["--device", "cpu", *flags])
+    assert_multi_device_flags(module, name != "eval_flowautoenc")
 
 
 CARD_INSTALL = """

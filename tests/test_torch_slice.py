@@ -200,7 +200,8 @@ def test_port_imports_no_jax():
                 "parallel/serving.py", "scripts/demo.py", "scripts/test_dm.py",
                 "scripts/eval_flowautoenc.py", "data/preprocess.py", "data/grain_loader.py",
                 "utils/msgpack.py", "scripts/train_dm.py", "scripts/train_lfae.py",
-                "scripts/make_bench_ckpt.py", "scripts/preprocess.py"):
+                "scripts/make_bench_ckpt.py", "scripts/preprocess.py", "parallel/distributed.py",
+                "parallel/mesh.py"):
         assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:

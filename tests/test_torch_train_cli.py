@@ -42,7 +42,7 @@ import torch
 
 from cvpr23_lfdm_torch.scripts import make_bench_ckpt, preprocess, train_dm, train_lfae
 from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager
-from test_torch_cli import ROOT, UNPORTED, _jax_parser, tiny_cfg
+from test_torch_cli import ROOT, _jax_parser, assert_multi_device_flags, tiny_cfg
 
 BLOCKED = ("cv2", "imageio", "imageio.v2", "PIL", "matplotlib", "matplotlib.pyplot", "grain",
            "grain.python", "transformers", "jax", "flax")
@@ -294,9 +294,7 @@ def test_parser_keeps_the_jax_flags(name, module):
             assert (tuple(default) if isinstance(default, list) else default) == (
                 tuple(action.default) if isinstance(action.default, list) else action.default), dest
     assert ours["device"].default is None
-    for flags in UNPORTED:
-        with pytest.raises(SystemExit, match="not ported"):
-            module.main(["--device", "cpu", *flags])
+    assert_multi_device_flags(module, name in ("train_dm", "train_lfae"))
 
 
 CARD_INSTALL = """
