@@ -71,6 +71,14 @@
 //
 // Layouts: x, out [B, F, N, C]; gamma [C] fp32; wqkv [C, 3*heads*D];
 // wout [heads*D, C]; bout [C] fp32; ctx [B*F, heads, D, D] in x's dtype.
+//
+// Head-shard mode (`partial` != 0; tensor parallelism over the `model` axis,
+// ops/attention.py::fused_spatial_linear_layer(..., partial=True)): the
+// launches get one rank's heads (their W_qkv columns and W_out rows) and
+// the output launch writes the fp32 out-projection sum over those heads
+// [B, F, N, C], with no b_out and no residual (`out` fp32; bout is not
+// read): the caller sums the ranks' partials in fp32, adds b_out, rounds
+// once and adds x, as the output launch does for all heads.
 
 #include <cooperative_groups.h>
 
@@ -157,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
 output_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const T* __restrict__ wqkv, const T* __restrict__ wout,
               const float* __restrict__ bout, const T* __restrict__ ctx,
-              T* __restrict__ out, int N, int C, int heads, int NT, float eps) {
+              T* __restrict__ out, int N, int C, int heads, int NT, int partial, float eps) {
   extern __shared__ float smem[];
   const int hd = heads * D;
   const int ldx = C + 1, ldq = hd + 1;
@@ -204,13 +212,14 @@ output_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   for (int e = threadIdx.x; e < nv * C; e += kThreads) {
     const int n = e / C, c = e % C;
     const long long gi = (bf * N + n0 + n) * C + c;
-    out[gi] = from_f<T>(to_f<T>(x[gi]) + rnd<T>(xn[n * ldx + c] + bout[c]));
+    out[gi] = partial ? from_f<T>(xn[n * ldx + c])
+                      : from_f<T>(to_f<T>(x[gi]) + rnd<T>(xn[n * ldx + c] + bout[c]));
   }
 }
 
 int launch_f32(const void* x, const void* gamma, const void* wqkv, const void* wout,
                const void* bout, void* ctx, void* out, int B, int F, int N, int C, int heads,
-               float eps, void* stream) {
+               int partial, float eps, void* stream) {
   const int NT = N < 32 ? N : 32;  // pixels per tile; the last tile may be short
   if (B < 1 || F < 1 || N < 1 || C < 1 || heads < 1) return cudaErrorInvalidValue;
   const int hd = heads * D;
@@ -233,7 +242,7 @@ int launch_f32(const void* x, const void* gamma, const void* wqkv, const void* w
   if (err != cudaSuccess) return err;
   k2<<<dim3((N + NT - 1) / NT, B * F), kThreads, smem2, s>>>(
       xt, gt, wq, static_cast<const float*>(wout), static_cast<const float*>(bout),
-      static_cast<const float*>(ctx), static_cast<float*>(out), N, C, heads, NT, eps);
+      static_cast<const float*>(ctx), static_cast<float*>(out), N, C, heads, NT, partial, eps);
   return cudaGetLastError();
 }
 
@@ -531,7 +540,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 linear_output_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                          const bf16* __restrict__ wqkv, const bf16* __restrict__ wout,
                          const float* __restrict__ bout, const bf16* __restrict__ ctx,
-                         bf16* __restrict__ out, int N, int C, int heads, int R, int K, float eps) {
+                         bf16* __restrict__ out, float* __restrict__ part, int N, int C, int heads,
+                         int R, int K, float eps) {
   extern __shared__ __align__(128) char lo_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -673,7 +683,7 @@ linear_output_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ g
           mma_bf16(acc[2 * p + 1], a, bv[2], bv[3]);
         }
     }
-    // out = x + round(acc + b_out), rounded
+    // out = x + round(acc + b_out), rounded (head-shard mode: part = acc)
 #pragma unroll
     for (int p = 0; p < 4; ++p)
       if (p < nb) {
@@ -686,6 +696,11 @@ linear_output_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ g
             const int r = 16 * s + grp + 8 * half;
             if (r < nv) {
               const long long gi = (bf * N + n0 + r) * C + c0 + cl;
+              if (part != nullptr) {
+                *reinterpret_cast<float2*>(part + gi) =
+                    make_float2(acc[2 * p + hh][2 * half], acc[2 * p + hh][2 * half + 1]);
+                continue;
+              }
               const float2 xv = bf2(*reinterpret_cast<const uint32_t*>(x + gi));
               *reinterpret_cast<uint32_t*>(out + gi) =
                   pack_bf16(xv.x + rnd<bf16>(acc[2 * p + hh][2 * half] + b0),
@@ -699,7 +714,7 @@ linear_output_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ g
 
 int launch_bf16(const void* x, const void* gamma, const void* wqkv, const void* wout,
                 const void* bout, void* ctx, void* out, int B, int F, int N, int C, int heads,
-                int R1, int KH, int KS, int R2, int K, float eps, void* stream) {
+                int R1, int KH, int KS, int R2, int K, int partial, float eps, void* stream) {
   if (B < 1 || F < 1 || B * F > 65535 || N < 1 || C < 16 || C % 16 != 0 || heads < 1 ||
       KH < 1 || heads % KH != 0 || heads / KH > kWarps || KS < 1 || KS > kMaxCluster ||
       R1 < 16 || R1 % 16 != 0 || R2 < 16 || R2 % 16 != 0 || R2 > 16 * kWarps || K < 1 ||
@@ -720,8 +735,8 @@ int launch_bf16(const void* x, const void* gamma, const void* wqkv, const void* 
   return launch_cluster(linear_output_mma_kernel, dim3(K, (N + R2 - 1) / R2, B * F),
                         dim3(K, 1, 1), 32 * kWarps, L2.total, st, xs, gs, wq,
                         static_cast<const bf16*>(wout), static_cast<const float*>(bout),
-                        static_cast<const bf16*>(ctx), static_cast<bf16*>(out), N, C, heads, R2,
-                        K, eps);
+                        static_cast<const bf16*>(ctx), partial ? nullptr : static_cast<bf16*>(out),
+                        partial ? static_cast<float*>(out) : nullptr, N, C, heads, R2, K, eps);
 }
 
 }  // namespace
@@ -731,21 +746,23 @@ extern "C" int launch_fused_spatial_linear_layer_f32(const void* x, const void* 
                                                      const void* wqkv, const void* wout,
                                                      const void* bout, void* ctx, void* out,
                                                      int B, int F, int N, int C, int heads,
-                                                     float eps, void* stream) {
-  return lfdm::launch_f32(x, gamma, wqkv, wout, bout, ctx, out, B, F, N, C, heads, eps, stream);
+                                                     int partial, float eps, void* stream) {
+  return lfdm::launch_f32(x, gamma, wqkv, wout, bout, ctx, out, B, F, N, C, heads, partial, eps,
+                          stream);
 }
 
 // Context launch: R1-row tiles, heads in KH groups, KS splits of a frame's
 // tiles per cluster; output launch: R2-row tiles, clusters of K blocks
-// (ops/attention.py::linear_layer_plan). Every block has 8 warps.
+// (ops/attention.py::linear_layer_plan). Every block has 8 warps. `partial`:
+// the head-shard mode, `out` fp32.
 extern "C" int launch_fused_spatial_linear_layer_bf16(const void* x, const void* gamma,
                                                       const void* wqkv, const void* wout,
                                                       const void* bout, void* ctx, void* out,
                                                       int B, int F, int N, int C, int heads,
                                                       int R1, int KH, int KS, int R2, int K,
-                                                      float eps, void* stream) {
+                                                      int partial, float eps, void* stream) {
   return lfdm::launch_bf16(x, gamma, wqkv, wout, bout, ctx, out, B, F, N, C, heads, R1, KH, KS,
-                           R2, K, eps, stream);
+                           R2, K, partial, eps, stream);
 }
 
 // Dynamic shared memory of one bf16 block: `kernel` 0, the context launch

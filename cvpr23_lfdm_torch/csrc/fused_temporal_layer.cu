@@ -61,6 +61,15 @@
 // Layouts: x, out [B, F, HW, C]; gamma [C] fp32; wqkv [C, 3*heads*D];
 // wout [heads*D, C]; bias_flat [B, F, heads*F] fp32; cos/sin [F, 3*heads*D].
 //
+// Head-shard mode (`partial` != 0; tensor parallelism over the `model` axis,
+// ops/attention.py::fused_temporal_layer(..., partial=True)): the launch
+// gets one rank's heads (their W_qkv columns, W_out rows, bias and rotary
+// columns) and writes its fp32 out-projection partial [B, F, HW, C], the
+// sum over its heads before any rounding, with no residual: the caller sums
+// the ranks' partials in fp32, rounds once and adds x, as this kernel does
+// for all heads. The same shared memory and the same order of sums; only
+// the last store differs.
+//
 // Ablation builds (timing only, the output is NOT the layer's): compiling
 // with one of -DLFDM_ABLATE_LAYERNORM, _QKV, _ROTARY, _SCORES, _SOFTMAX, _PV,
 // _OUTPROJ removes that stage of the kernel (named after the stages above),
@@ -96,7 +105,7 @@ fused_temporal_layer_kernel(const T* __restrict__ x, const float* __restrict__ g
                             const T* __restrict__ wqkv, const T* __restrict__ wout,
                             const float* __restrict__ bias_flat, const T* __restrict__ cos_t,
                             const T* __restrict__ sin_t, T* __restrict__ out, int F, int HW,
-                            int C, int heads, int P, float eps) {
+                            int C, int heads, int P, int partial, float eps) {
   extern __shared__ float smem[];
   const int hd = heads * D;
   const int R = P * F;  // row r = p * F + f
@@ -203,7 +212,7 @@ fused_temporal_layer_kernel(const T* __restrict__ x, const float* __restrict__ g
   for (int e = threadIdx.x; e < R * C; e += kThreads) {
     const int r = e / C, c = e % C;
     const long long gi = (((long long)b * F + r % F) * HW + p0 + r / F) * C + c;
-    out[gi] = from_f<T>(to_f<T>(x[gi]) + rnd<T>(acc[e]));
+    out[gi] = partial ? from_f<T>(acc[e]) : from_f<T>(to_f<T>(x[gi]) + rnd<T>(acc[e]));
   }
 }
 
@@ -254,8 +263,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                                 const bf16* __restrict__ wqkv, const bf16* __restrict__ wout,
                                 const float* __restrict__ bias_flat, const bf16* __restrict__ cos_t,
-                                const bf16* __restrict__ sin_t, bf16* __restrict__ out, int F,
-                                int HW, int C, int heads, int P, int K, float eps) {
+                                const bf16* __restrict__ sin_t, bf16* __restrict__ out,
+                                float* __restrict__ part, int F, int HW, int C, int heads, int P,
+                                int K, float eps) {
   constexpr int KT = (NT + 1) / 2, FP = 16 * KT;
   extern __shared__ __align__(128) char tl_smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -508,7 +518,8 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
     __syncthreads();  // the next head overwrites the tiles, W rows and bias
   }
 
-  // out = x + round(sum of the K partials in rank order) for this block's columns
+  // out = x + round(sum of the K partials in rank order) for this block's columns (head-shard
+  // mode: part = the sum, in fp32)
   const int nch = C / 4, c0 = rank * nch / K, w = (rank + 1) * nch / K - c0;
 #ifndef LFDM_ABLATE_REDUCE
   cluster.sync();
@@ -517,7 +528,6 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
     const int r = idx / w, ch = c0 + idx % w, f = r % F;
     const int off = r * LDP + 4 * ch;
     const long long gi = ((b * F + f) * HW + pix0 + r / F) * C + 4 * ch;
-    const uint2 xv = *reinterpret_cast<const uint2*>(x + gi);
 #ifdef LFDM_ABLATE_REDUCE
     const float4 sum = *reinterpret_cast<const float4*>(spart + off);
 #else
@@ -536,6 +546,11 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
         sum.w += v[q].w;
       }
 #endif
+    if (part != nullptr) {
+      *reinterpret_cast<float4*>(part + gi) = sum;
+      continue;
+    }
+    const uint2 xv = *reinterpret_cast<const uint2*>(x + gi);
     const float2 x01 = bf2(xv.x), x23 = bf2(xv.y);
     uint2 ov;
     ov.x = pack_bf16(x01.x + rnd<bf16>(sum.x), x01.y + rnd<bf16>(sum.y));
@@ -549,18 +564,19 @@ fused_temporal_layer_mma_kernel(const bf16* __restrict__ x, const float* __restr
 
 template <int NT>
 cudaError_t launch_mma(const bf16* x, const float* gamma, const bf16* wqkv, const bf16* wout,
-                       const float* bias, const bf16* cos_t, const bf16* sin_t, bf16* out, int B,
-                       int F, int HW, int C, int heads, int P, int K, float eps, cudaStream_t st) {
+                       const float* bias, const bf16* cos_t, const bf16* sin_t, bf16* out,
+                       float* part, int B, int F, int HW, int C, int heads, int P, int K, float eps,
+                       cudaStream_t st) {
   const Layout L = layout(F, C, P, heads / K);
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;  // the wrapper sizes P to fit
   return launch_cluster(fused_temporal_layer_mma_kernel<NT>, dim3(K, (HW + P - 1) / P, B),
                         dim3(K, 1, 1), 32 * P * ((NT + 1) / 2), L.total, st, x, gamma, wqkv, wout,
-                        bias, cos_t, sin_t, out, F, HW, C, heads, P, K, eps);
+                        bias, cos_t, sin_t, out, part, F, HW, C, heads, P, K, eps);
 }
 
 int launch_bf16(const void* x, const void* gamma, const void* wqkv, const void* wout,
                 const void* bias, const void* cos_t, const void* sin_t, void* out, int B, int F,
-                int HW, int C, int heads, int P, int K, float eps, void* stream) {
+                int HW, int C, int heads, int P, int K, int partial, float eps, void* stream) {
   if (B < 1 || F < 1 || F > 64 || HW < 1 || C < 16 || C % 16 != 0 || K < 1 ||
       heads % K != 0 || P < 1 || P * ((F + 15) / 16) > kMaxWarps || K > kMaxCluster || B > 65535 ||
       (HW + P - 1) / P > 65535)
@@ -572,10 +588,11 @@ int launch_bf16(const void* x, const void* gamma, const void* wqkv, const void* 
   auto bi = static_cast<const float*>(bias);
   auto co = static_cast<const bf16*>(cos_t);
   auto si = static_cast<const bf16*>(sin_t);
-  auto o = static_cast<bf16*>(out);
+  auto o = partial ? nullptr : static_cast<bf16*>(out);
+  auto pt = partial ? static_cast<float*>(out) : nullptr;
   auto st = static_cast<cudaStream_t>(stream);
 #define LFDM_CASE(n) \
-  case n: return launch_mma<n>(xs, gs, wq, wo, bi, co, si, o, B, F, HW, C, heads, P, K, eps, st);
+  case n: return launch_mma<n>(xs, gs, wq, wo, bi, co, si, o, pt, B, F, HW, C, heads, P, K, eps, st);
   switch ((F + 7) / 8) {
     LFDM_CASE(1) LFDM_CASE(2) LFDM_CASE(3) LFDM_CASE(4)
     LFDM_CASE(5) LFDM_CASE(6) LFDM_CASE(7) LFDM_CASE(8)
@@ -586,7 +603,7 @@ int launch_bf16(const void* x, const void* gamma, const void* wqkv, const void* 
 
 int launch_f32(const void* x, const void* gamma, const void* wqkv, const void* wout,
                const void* bias, const void* cos_t, const void* sin_t, void* out, int B, int F,
-               int HW, int C, int heads, float eps, void* stream) {
+               int HW, int C, int heads, int partial, float eps, void* stream) {
   if (F < 1 || F > 64 || HW < 1 || C < 1 || heads < 1 || B < 1) return cudaErrorInvalidValue;
   int P = 1;  // pixels per block: P * C <= 256 and P | HW
   while (2 * P * C <= 256 && HW % (2 * P) == 0) P *= 2;
@@ -601,7 +618,7 @@ int launch_f32(const void* x, const void* gamma, const void* wqkv, const void* w
       static_cast<const float*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(wqkv), static_cast<const float*>(wout),
       static_cast<const float*>(bias), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<float*>(out), F, HW, C, heads, P, eps);
+      static_cast<const float*>(sin_t), static_cast<float*>(out), F, HW, C, heads, P, partial, eps);
   return cudaGetLastError();
 }
 
@@ -612,21 +629,22 @@ extern "C" int launch_fused_temporal_layer_f32(const void* x, const void* gamma,
                                                const void* wqkv, const void* wout,
                                                const void* bias, const void* cos_t,
                                                const void* sin_t, void* out, int B, int F,
-                                               int HW, int C, int heads, float eps,
+                                               int HW, int C, int heads, int partial, float eps,
                                                void* stream) {
-  return lfdm::launch_f32(x, gamma, wqkv, wout, bias, cos_t, sin_t, out, B, F, HW, C, heads, eps,
-                          stream);
+  return lfdm::launch_f32(x, gamma, wqkv, wout, bias, cos_t, sin_t, out, B, F, HW, C, heads,
+                          partial, eps, stream);
 }
 
-// P pixels per cluster, K blocks (head groups) per cluster: ops/attention.py::temporal_layer_plan
+// P pixels per cluster, K blocks (head groups) per cluster: ops/attention.py::temporal_layer_plan.
+// `partial`: the head-shard mode, `out` fp32.
 extern "C" int launch_fused_temporal_layer_bf16(const void* x, const void* gamma,
                                                 const void* wqkv, const void* wout,
                                                 const void* bias, const void* cos_t,
                                                 const void* sin_t, void* out, int B, int F,
                                                 int HW, int C, int heads, int P, int K,
-                                                float eps, void* stream) {
+                                                int partial, float eps, void* stream) {
   return lfdm::launch_bf16(x, gamma, wqkv, wout, bias, cos_t, sin_t, out, B, F, HW, C, heads, P,
-                           K, eps, stream);
+                           K, partial, eps, stream);
 }
 
 // Dynamic shared memory of one bf16 block (the test of temporal_layer_smem's mirror)

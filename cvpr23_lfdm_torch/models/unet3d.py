@@ -34,6 +34,11 @@ and the time/condition MLP and output heads in fp32, as in the JAX model.
 
 Reference quirks kept: the init temporal attention gets no focus mask, and
 the linear and mid attention use dim_head 32 whatever `attn_dim_head` is.
+
+:func:`shard_unet` turns a built UNet of any form into its tensor-parallel
+form over a mesh's `model` axis (the JAX package's GSPMD partitioning of
+`UNET_TP_RULES`, with the collectives written out); a module whose `tp`
+is None runs as above, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,9 +50,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvpr23_lfdm_torch.models.blocks import Conv2d, Dense
+from cvpr23_lfdm_torch.models.blocks import Conv2d, Dense, _compute_dtype
 from cvpr23_lfdm_torch.ops import attention as attn_ops
 from cvpr23_lfdm_torch.ops import norm as norm_ops
+from cvpr23_lfdm_torch.parallel.mesh import (
+    copy_to_model, gather_channels, model_slice, reduce_from_model, replicate, shard_variables,
+)
 
 
 ATTN_IMPLS = ("xla", "pallas", "pallas2", "pallas3")
@@ -155,6 +163,8 @@ class TemporalAttention(nn.Module):
     `"pallas"` through rotary in the qkv dtype and the forward-only packed
     kernel, `"xla"` through plain einsums."""
 
+    tp = None  # the mesh of the tensor-parallel form (`shard_unet`)
+
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
                  impl: str = "xla"):
         super().__init__()
@@ -168,6 +178,8 @@ class TemporalAttention(nn.Module):
     def forward(self, x, prenorm_gamma=None, pos_bias=None, focus_present_mask=None):
         b, f, h, w, c = x.shape
         cdt = self.dtype
+        if pos_bias is not None:
+            pos_bias = model_slice(pos_bias, self.tp)  # this rank's heads
         if self.impl == "xla":
             return self._einsum_attention(x, pos_bias, focus_present_mask)
         if pos_bias is None:
@@ -182,14 +194,16 @@ class TemporalAttention(nn.Module):
             qkv = self.to_qkv(x).reshape(b, f, h * w, -1)
             out = attn_ops.headpacked_temporal_attention(
                 qkv, bias_flat, cos_t, sin_t, self.heads, self.dim_head)
-            return self.to_out(out.reshape(b, f, h, w, -1))
+            return project_out(self.to_out, out.reshape(b, f, h, w, -1), self.tp)
+        xr = x.reshape(b, f, h * w, c).to(cdt).contiguous()
         out = attn_ops.fused_temporal_layer(
-            x.reshape(b, f, h * w, c).to(cdt).contiguous(),
-            prenorm_gamma.float().contiguous(),
+            xr, prenorm_gamma.float().contiguous(),
             self.to_qkv.weight.to(cdt).t().contiguous(),
             self.to_out.weight.to(cdt).t().contiguous(),
-            bias_flat, cos_t, sin_t, self.heads, self.dim_head,
+            bias_flat, cos_t, sin_t, self.heads, self.dim_head, partial=self.tp is not None,
         )
+        if self.tp is not None:  # the heads' fp32 sum, rounded once, then the residual
+            out = xr + reduce_from_model(out, self.tp).to(cdt)
         return out.reshape(b, f, h, w, c).to(x.dtype)
 
     def _packed_attention(self, x, pos_bias, focus_present_mask):
@@ -205,7 +219,7 @@ class TemporalAttention(nn.Module):
         qkv = qkv * cos_t[None, :, None, :] + attn_ops.rotate_pairs(qkv) * sin_t[None, :, None, :]
         out = attn_ops.packed_temporal_attention(
             qkv.swapaxes(1, 2).contiguous(), bias, self.heads, self.dim_head, pack)
-        return self.to_out(out.swapaxes(1, 2).reshape(b, f, h, w, -1))
+        return project_out(self.to_out, out.swapaxes(1, 2).reshape(b, f, h, w, -1), self.tp)
 
     def _einsum_attention(self, x, pos_bias, focus_present_mask):
         """`xla`: the JAX model's einsum form. Under a lower-precision
@@ -230,7 +244,7 @@ class TemporalAttention(nn.Module):
         sim = sim - sim.amax(dim=-1, keepdim=True).detach()
         attn = torch.softmax(sim.float(), dim=-1).to(v.dtype)
         out = torch.einsum("bxhij,bjxhd->bixhd", attn, v)
-        return self.to_out(out.reshape(b, f, h, w, heads * d))
+        return project_out(self.to_out, out.reshape(b, f, h, w, heads * d), self.tp)
 
 
 class SpatialLinearAttention(nn.Module):
@@ -238,6 +252,8 @@ class SpatialLinearAttention(nn.Module):
     PreNorm layer (`impl="pallas3"`), or its differentiable unfused form in
     plain PyTorch on the normalized input (every other form; it reaches no
     kernel)."""
+
+    tp = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
                  impl: str = "xla"):
@@ -267,21 +283,23 @@ class SpatialLinearAttention(nn.Module):
         k = (ek / ek.float().sum(dim=2, keepdim=True).to(cdt)).to(dt)
         context = torch.einsum("bfnhd,bfnhe->bfhde", k, v)
         out = torch.einsum("bfhde,bfnhd->bfnhe", context, q)
-        return self.to_out(out.reshape(b, f, h, w, heads * d))
+        return project_out(self.to_out, out.reshape(b, f, h, w, heads * d), self.tp)
 
     def forward(self, x, prenorm_gamma=None):
         if not self.fused:
             return self._unfused(x)
         b, f, h, w, c = x.shape
         cdt = self.dtype
+        xr = x.reshape(b, f, h * w, c).to(cdt).contiguous()
+        bout = self.to_out.bias.float().contiguous()
         out = attn_ops.fused_spatial_linear_layer(
-            x.reshape(b, f, h * w, c).to(cdt).contiguous(),
-            prenorm_gamma.float().contiguous(),
+            xr, prenorm_gamma.float().contiguous(),
             self.to_qkv.weight.to(cdt).t().contiguous(),
             self.to_out.weight.to(cdt).t().contiguous(),
-            self.to_out.bias.float().contiguous(),
-            self.heads, self.dim_head,
+            bout, self.heads, self.dim_head, partial=self.tp is not None,
         )
+        if self.tp is not None:  # the heads' fp32 sum + b_out, rounded once, then the residual
+            out = xr + (reduce_from_model(out, self.tp) + bout).to(cdt)
         return out.reshape(b, f, h, w, c).to(x.dtype)
 
 
@@ -289,6 +307,7 @@ class SpatialAttention(nn.Module):
     """Full attention over pixels, batched over frames (mid block only)."""
 
     fused = False
+    tp = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, dtype=torch.float32,
                  impl: str = "xla"):
@@ -308,7 +327,7 @@ class SpatialAttention(nn.Module):
         attn = torch.softmax(sim, dim=-1).to(v.dtype)
         out = torch.einsum("bfhij,bfhjd->bfhid", attn, v)
         out = out.permute(0, 1, 3, 2, 4).reshape(b, f, h, w, hidden)
-        return self.to_out(out)
+        return project_out(self.to_out, out, self.tp)
 
 
 class PreNormResidual(nn.Module):
@@ -323,11 +342,13 @@ class PreNormResidual(nn.Module):
     def forward(self, x, **kwargs):
         if self.attn.fused:
             return self.attn(x, prenorm_gamma=self.norm.gamma, **kwargs)
-        return x + self.attn(self.norm(x), **kwargs)
+        return x + self.attn(copy_to_model(self.norm(x), self.attn.tp), **kwargs)
 
 
 class Conv2plus1d(nn.Module):
     """(1, k, k) pseudo-3D conv as a frame-folded 2D conv."""
+
+    tp = None  # tensor-parallel form: this rank's output channels
 
     def __init__(self, cin: int, cout: int, k: int, dtype=None, bias: bool = True):
         super().__init__()
@@ -335,7 +356,7 @@ class Conv2plus1d(nn.Module):
 
     def forward(self, x):
         b, f, h, w, c = x.shape
-        y = self.conv(x.reshape(b * f, h, w, c))
+        y = self.conv(copy_to_model(x, self.tp).reshape(b * f, h, w, c))
         return y.reshape(b, f, h, w, -1)
 
 
@@ -343,19 +364,27 @@ class GroupNorm(nn.Module):
     """GroupNorm over (F, H, W, C/G) per batch entry: fp32 statistics
     (var = E[x²]−mean², clipped at 0), fp32 normalize, result in `dtype`."""
 
+    tp = None  # tensor-parallel form: x holds this rank's whole groups
+
     def __init__(self, c: int, groups: int = 8, eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
         self.groups, self.eps, self.dtype = groups, eps, dtype
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
+    def affine(self) -> tuple:
+        """(groups, weight, bias) of the channels this rank's x holds."""
+        groups = self.groups if self.tp is None else self.groups // self.tp.model_size
+        return groups, model_slice(self.weight, self.tp), model_slice(self.bias, self.tp)
+
     def forward(self, x):
+        groups, weight, bias = self.affine()
         shape = x.shape
-        xf = x.float().reshape(shape[0], -1, self.groups, shape[-1] // self.groups)
+        xf = x.float().reshape(shape[0], -1, groups, shape[-1] // groups)
         mean = xf.mean(dim=(1, 3), keepdim=True)
         var = ((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0.0)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        y = y.reshape(shape) * self.weight + self.bias
+        y = y.reshape(shape) * weight + bias
         return y.to(self.dtype)
 
 
@@ -375,9 +404,9 @@ class Block(nn.Module):
         if self.fused_norm:
             x = self.proj(x)
             scale, shift = scale_shift if scale_shift is not None else (None, None)
+            groups, weight, bias = self.norm.affine()
             return norm_ops.groupnorm_film_silu(
-                x, self.norm.weight, self.norm.bias, scale, shift,
-                groups=self.norm.groups, eps=self.norm.eps)
+                x, weight, bias, scale, shift, groups=groups, eps=self.norm.eps)
         x = self.norm(self.proj(x))
         if scale_shift is not None:
             scale, shift = scale_shift
@@ -397,19 +426,27 @@ class ResnetBlock(nn.Module):
         self.block2 = Block(cout, cout, groups, dtype, fused_norm)
         self.res_conv = Dense(cin, cout, dtype=dtype) if cin != cout else None
 
+    tp = None  # tensor-parallel form: each Block on this rank's channels
+
     def forward(self, x, cond_emb=None):
+        # tensor-parallel form: the rank's channels through both Blocks (its
+        # FiLM scale and shift columns, its GroupNorm groups), gathered
+        # between them and at the end
+        mesh = self.tp
         scale_shift = None
         if cond_emb is not None:
-            t = self.mlp(F.silu(cond_emb))[:, None, None, None, :]
+            t = self.mlp(copy_to_model(F.silu(cond_emb), mesh))[:, None, None, None, :]
             scale_shift = t.chunk(2, dim=-1)
-        h = self.block2(self.block1(x, scale_shift))
+        h = self.block2(gather_channels(self.block1(x, scale_shift), mesh))
         if self.res_conv is not None:
-            x = self.res_conv(x)
-        return (h + x).to(self.dtype)
+            return gather_channels((h + self.res_conv(copy_to_model(x, mesh))).to(self.dtype), mesh)
+        return (gather_channels(h, mesh) + x).to(self.dtype)
 
 
 class Downsample(nn.Module):
     """(1,4,4)/(1,2,2) strided conv."""
+
+    tp = None  # tensor-parallel form: this rank's output channels, gathered
 
     def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
@@ -417,7 +454,8 @@ class Downsample(nn.Module):
 
     def forward(self, x):
         b, f, h, w, c = x.shape
-        return self.conv(x.reshape(b * f, h, w, c)).reshape(b, f, h // 2, w // 2, -1)
+        y = self.conv(copy_to_model(x, self.tp).reshape(b * f, h, w, c))
+        return gather_channels(y.reshape(b, f, h // 2, w // 2, -1), self.tp)
 
 
 class Upsample(nn.Module):
@@ -435,9 +473,11 @@ class Upsample(nn.Module):
         else:
             self.conv = Conv2d(dim, dim, 3, dtype=dtype)
 
+    tp = None  # tensor-parallel form: this rank's output channels, gathered
+
     def forward(self, x):
         b, f, h, w, c = x.shape
-        y = x.reshape(b * f, h, w, c)
+        y = copy_to_model(x, self.tp).reshape(b * f, h, w, c)
         if self.use_deconv:
             dt = self.dtype
             y = F.conv_transpose2d(
@@ -446,12 +486,15 @@ class Upsample(nn.Module):
             ).permute(0, 2, 3, 1)
         else:
             y = self.conv(y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
-        return y.reshape(b, f, 2 * h, 2 * w, -1)
+        return gather_channels(y.reshape(b, f, 2 * h, 2 * w, -1), self.tp)
 
 
 class Unet3D(nn.Module):
     """Input `[B, F, H, W, 3]` noisy latent (+ `fea [B, Ff, H, W, Cf]`,
     Ff in {1, F}), output `[B, F, H, W, 3]` fp32 (2 flow + 1 conf)."""
+
+    tp = None  # the mesh of the tensor-parallel form (`shard_unet`)
+    tp_shapes = None  # and its one-process state-dict shapes, by key (`gather_variables`)
 
     def __init__(self, dim: int = 64, cond_dim: int = 768, dim_mults=(1, 2, 4, 8),
                  attn_heads: int = 8, attn_dim_head: int = 32, learn_null_cond: bool = False,
@@ -519,11 +562,15 @@ class Unet3D(nn.Module):
         x = self.init_conv(x)
         if fea is not None:
             x = x + self.init_conv_fea(fea.to(self.dtype)).to(x.dtype)
+        x = gather_channels(x, self.tp)
         r = x
         # reference quirk: no focus mask for the init temporal attention
         x = self.init_temporal_attn(x, pos_bias=pos_bias)
 
-        t = self.time_mlp_2(F.gelu(self.time_mlp_1(sinusoidal_pos_emb(time, self.dim))))
+        # tensor-parallel form: column-parallel, each layer's output columns gathered
+        t = sinusoidal_pos_emb(time, self.dim)
+        t = gather_channels(F.gelu(column_dense(self.time_mlp_1, t, self.tp)), self.tp)
+        t = gather_channels(column_dense(self.time_mlp_2, t, self.tp), self.tp)
         if cond is not None:
             if self.learn_null_cond:
                 null_emb = self.null_cond_emb
@@ -566,3 +613,116 @@ class Unet3D(nn.Module):
             grid = torch.tanh(grid)
         conf = self.occlusion_conv(self.occlusion_block(x))
         return torch.cat([grid, conf], dim=-1).float()
+
+
+# ------------------------------------------------------------------ tensor parallelism
+
+
+def project_out(dense: Dense, o: torch.Tensor, mesh) -> torch.Tensor:
+    """`to_out` of an attention layer; in the tensor-parallel form the
+    row-parallel product of this rank's heads in fp32 (the operands rounded
+    to the compute dtype, as the one-process product takes them), summed
+    over the model group, `+ bias`, then rounded to the compute dtype."""
+    if mesh is None:
+        return dense(o)
+    dt = _compute_dtype(dense.dtype, o)
+    out = reduce_from_model(F.linear(o.to(dt).float(), dense.weight.to(dt).float()), mesh)
+    if dense.bias is not None:
+        out = out + dense.bias.to(dt).float()
+    return out.to(dt)
+
+
+def column_dense(dense: Dense, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A Dense layer; in the tensor-parallel form one whose weight holds
+    this rank's output rows and whose bias is replicated (the time MLPs
+    under `UNET_TP_RULES`): this rank's output columns."""
+    if mesh is None:
+        return dense(x)
+    dt = _compute_dtype(dense.dtype, x)
+    return F.linear(copy_to_model(x, mesh).to(dt), dense.weight.to(dt),
+                    model_slice(dense.bias, mesh).to(dt))
+
+
+# module classes that run on a shard, and their parameters that the rules
+# shard (every other parameter stays whole)
+_TP_MODULES = (TemporalAttention, SpatialLinearAttention, SpatialAttention, Conv2plus1d, GroupNorm,
+               ResnetBlock, Downsample, Upsample, Unet3D)
+# replicated parameters used on this rank's channels or heads only: their
+# gradients are summed over the model group
+_SLICED_REPLICATED = ("norm.weight", "norm.bias", "time_mlp_1.bias", "time_mlp_2.bias",
+                      "relative_attention_bias.weight")
+
+
+def check_tp(size: int, heads: int | None = None, groups: int = 8) -> None:
+    """The tensor-parallel form splits the UNet's `groups` GroupNorm groups
+    (8 in every configuration) and its `heads` attention heads evenly over
+    the model axis."""
+    if size < 1 or groups % size or (heads is not None and heads % size):
+        what = f"GroupNorm({groups}) groups" + (f" and its {heads} attention heads" if heads else "")
+        raise ValueError(f"tp={size}: the port's tensor parallelism splits the UNet's {what} evenly "
+                         "over the model axis, so tp must divide them (the JAX package replicates "
+                         "a leaf it cannot split; the port does not)")
+
+
+def shard_unet(unet: Unet3D, mesh) -> Unet3D:
+    """Turn a built one-process `Unet3D` into its tensor-parallel form over
+    `mesh`'s `model` axis, in place, and return it (a no-op on a mesh of
+    one model rank, or for a UNet already sharded on `mesh`). The sharded
+    parameters are new `Parameter`s: build an optimizer after it.
+
+    Every rank of the model group first takes the first rank's weights;
+    then each parameter that `UNET_TP_RULES` shards is cut to this rank's
+    slice (`shard_variables`: q|k|v of its heads, scale|shift of its
+    channels, else contiguous), under the same name, so that
+    `gather_variables(unet.state_dict(), mesh, unet.tp_shapes)` is the
+    one-process state.
+    The modules then run column-parallel `to_qkv` and FiLM `mlp`,
+    row-parallel `to_out` (one fp32 all-reduce per attention layer, the
+    residual and bias added once after it), output-channel-sharded convs
+    with GroupNorm, FiLM and SiLU on the rank's channels and a channel
+    gather where the next layer needs every channel. Each sharded parameter
+    gets `tp_sharded = True`, each replicated one that a rank uses only on
+    its slice `tp_partial_grad = True` (its gradient is summed over the
+    model group; `train/dm_trainer.py`)."""
+    if mesh.model_size == 1 or unet.tp is mesh:
+        return unet
+    if unet.tp is not None:
+        raise ValueError("shard_unet: the UNet is already sharded on another mesh")
+    heads = unet.time_rel_pos_bias.relative_attention_bias.weight.shape[1]
+    for groups in {m.groups for m in unet.modules() if isinstance(m, GroupNorm)}:
+        check_tp(mesh.model_size, heads, groups)
+    replicate(unet, mesh, axis="model")
+    unet.tp_shapes = {k: tuple(v.shape) for k, v in unet.state_dict().items()}
+    named = dict(unet.named_parameters())
+    shards = shard_variables({k: p.detach() for k, p in named.items()}, mesh)
+    for name, p in named.items():
+        sharded = shards[name].shape != p.shape
+        if sharded:  # a new Parameter (no autograd node of the whole one carries over)
+            owner, _, leaf = name.rpartition(".")
+            p = nn.Parameter(shards[name].clone(), requires_grad=p.requires_grad)
+            setattr(unet.get_submodule(owner), leaf, p)
+        p.tp_sharded = sharded
+        p.tp_partial_grad = not sharded and name.endswith(_SLICED_REPLICATED)
+    # every weight of a layer that runs on a shard must be split by the rules
+    for mname, m in unet.named_modules():
+        split = isinstance(m, (Conv2d, Dense)) or isinstance(m, Upsample) and m.use_deconv
+        if split and not m.weight.tp_sharded and not mname.endswith(("final_conv", "occlusion_conv")):
+            raise ValueError(f"shard_unet: {mname} is not split by UNET_TP_RULES at tp={mesh.model_size}")
+    for m in unet.modules():
+        if isinstance(m, _TP_MODULES):
+            m.tp = mesh
+        if isinstance(m, (TemporalAttention, SpatialLinearAttention, SpatialAttention)):
+            m.heads //= mesh.model_size
+    unet.tp = mesh
+    return unet
+
+
+def tp_parameters(unet: nn.Module) -> tuple[list, list, list]:
+    """`(sharded, partial, whole)`: the trainable parameters of a UNet in
+    its tensor-parallel form by kind (all `whole` on one process)."""
+    out = ([], [], [])
+    for p in unet.parameters():
+        if p.requires_grad:
+            kind = 0 if getattr(p, "tp_sharded", False) else 1 if getattr(p, "tp_partial_grad", False) else 2
+            out[kind].append(p)
+    return out

@@ -6,13 +6,16 @@ from __future__ import annotations
 
 
 def kernel_counters() -> dict:
-    """name -> (wrapper, counter attribute) of every kernel wrapper."""
+    """name -> (wrapper, counter attribute) of every kernel wrapper (the
+    `_partial` entries: the head-shard launches among the wrapper's)."""
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.ops import warp as W
 
     return {"fused_temporal_layer": (A.fused_temporal_layer, "launches"),
             "fused_spatial_linear_layer": (A.fused_spatial_linear_layer, "launches"),
+            "fused_temporal_layer_partial": (A.fused_temporal_layer, "partial_launches"),
+            "fused_spatial_linear_layer_partial": (A.fused_spatial_linear_layer, "partial_launches"),
             "warp_video": (W.warp_video, "launches"),
             "headpacked_attention_fwd": (A.headpacked_temporal_attention, "launches"),
             "headpacked_attention_bwd": (A.headpacked_temporal_attention, "backward_launches"),

@@ -151,6 +151,7 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 232448  # dynamic shared memory of one block on the H100
 _SMEM_PER_SM = 233472  # shared memory of one SM on the H100
 _REGS = 160  # registers per thread of the bf16 temporal-layer kernel (ptxas: 125-159)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 def rotary_tables(f: int, heads: int, dim_head: int, scale: float, dtype,
@@ -239,7 +240,7 @@ def _layer_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tenso
 
 
 def fused_temporal_layer_plain(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
-                               heads: int, dim_head: int, eps: float = 1e-5):
+                               heads: int, dim_head: int, eps: float = 1e-5, partial: bool = False):
     """Plain version of :func:`fused_temporal_layer` (same arguments)."""
     b, f, hw, c = x.shape
     dt = x.dtype
@@ -256,12 +257,13 @@ def fused_temporal_layer_plain(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
     num = torch.einsum("bxhij,bjxhd->bixhd", e, v)
     den = e.sum(dim=-1).permute(0, 3, 1, 2)[..., None].clamp_min(_TINY)  # [B, i, x, h, 1]
     o = (num / den).to(dt).reshape(b, f, hw, hd)
-    proj = (o.float() @ wout.float()).to(dt)
-    return x + proj
+    proj = o.float() @ wout.float()
+    return proj if partial else x + proj.to(dt)
 
 
 def fused_spatial_linear_layer_plain(x, gamma, wqkv, wout, bout,
-                                     heads: int, dim_head: int, eps: float = 1e-5):
+                                     heads: int, dim_head: int, eps: float = 1e-5,
+                                     partial: bool = False):
     """Plain version of :func:`fused_spatial_linear_layer` (same arguments)."""
     b, f, n, c = x.shape
     dt = x.dtype
@@ -279,8 +281,8 @@ def fused_spatial_linear_layer_plain(x, gamma, wqkv, wout, bout,
     v = qkv[..., 2 * hd:].to(dt).reshape(b, f, n, heads, d)
     ctx = torch.einsum("bfnhd,bfnhe->bfhde", kn.float(), v.float()).to(dt)
     out = torch.einsum("bfnhd,bfhde->bfnhe", qn.float(), ctx.float()).to(dt)
-    proj = (out.reshape(b, f, n, hd).float() @ wout.float() + bout.float()).to(dt)
-    return x + proj
+    proj = out.reshape(b, f, n, hd).float() @ wout.float()
+    return proj if partial else x + (proj + bout.float()).to(dt)
 
 
 def _check_layer_args(name, x, gamma, wqkv, wout, hd, same_dtype, f32):
@@ -311,7 +313,7 @@ def _suffix(dtype) -> str:
 
 
 def fused_temporal_layer(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
-                         heads: int, dim_head: int, eps: float = 1e-5):
+                         heads: int, dim_head: int, eps: float = 1e-5, partial: bool = False):
     """`x + to_out(attn(rotary(to_qkv(LN(x)))))` over the frame axis.
 
     Args:
@@ -319,21 +321,27 @@ def fused_temporal_layer(x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
       gamma: `[C]` fp32 LN scale; wqkv: `[C, 3*heads*d]`; wout: `[heads*d, C]`.
       bias_flat: `[B, F, heads*F]` fp32 (:func:`build_bias_flat`).
       cos_t/sin_t: `[F, 3*heads*d]` (:func:`rotary_tables`).
+      partial: the head-shard mode of tensor parallelism: `heads` are one
+        rank's heads (its q|k|v columns of `wqkv`, rows of `wout`, slices of
+        `bias_flat` and the tables) and the result is the fp32 `to_out`
+        partial over them, with no residual and no rounding.
 
-    Returns `[B, F, HW, C]`. The kernel needs d = 32 and F <= 64.
+    Returns `[B, F, HW, C]` (fp32 with `partial`). The kernel needs d = 32
+    and F <= 64. `.launches` counts every launch, `.partial_launches` those
+    in the head-shard mode.
     """
     if x.device.type == "cpu":
         return fused_temporal_layer_plain(
-            x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, heads, dim_head, eps
-        )
+            x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, heads, dim_head, eps, partial)
     out = _launch_fused_temporal_layer(
-        (), x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, heads, dim_head, eps)
+        (), x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, heads, dim_head, eps, partial)
     fused_temporal_layer.launches += 1
+    fused_temporal_layer.partial_launches += int(partial)
     return out
 
 
 def _launch_fused_temporal_layer(defines, x, gamma, wqkv, wout, bias_flat, cos_t, sin_t,
-                                 heads, dim_head, eps):
+                                 heads, dim_head, eps, partial=False):
     """Check the arguments and launch `csrc/fused_temporal_layer.cu` as
     built under `defines` (none: the serving kernel)."""
     b, f, hw, c = x.shape
@@ -346,7 +354,7 @@ def _launch_fused_temporal_layer(defines, x, gamma, wqkv, wout, bias_flat, cos_t
     if tuple(bias_flat.shape) != (b, f, heads * f) or tuple(cos_t.shape) != (f, 3 * hd) \
             or tuple(sin_t.shape) != (f, 3 * hd):
         raise ValueError("fused_temporal_layer: bias or rotary table shape")
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=torch.float32 if partial else x.dtype)
     ints = (b, f, hw, c, heads)
     if x.dtype == torch.bfloat16:
         if c % 16:
@@ -354,16 +362,14 @@ def _launch_fused_temporal_layer(defines, x, gamma, wqkv, wout, bias_flat, cos_t
         _check_aligned("fused_temporal_layer", x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, out)
         plan = temporal_layer_plan(b, f, hw, c, heads, _sm_count(x.device.index))
         ints += (plan["pixels"], plan["cluster"])
-    lib = _build.load("fused_temporal_layer", defines)
     name = "launch_fused_temporal_layer_" + _suffix(x.dtype)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * len(ints) + [ctypes.c_float, ctypes.c_void_p]
+    fn = _build.bind("fused_temporal_layer", name,
+                     [_PTR] * 8 + [_INT] * (len(ints) + 1) + [ctypes.c_float, _PTR], defines)
     code = fn(
         *(_build.ptr(t) for t in (x, gamma, wqkv, wout, bias_flat, cos_t, sin_t, out)),
-        *ints, eps, _build.stream(x.device),
+        *ints, int(partial), eps, _build.stream(x.device),
     )
-    _build.check(lib, name, code)
+    _build.check(_build.load("fused_temporal_layer", defines), name, code)
     return out
 
 
@@ -475,20 +481,25 @@ def fused_temporal_layer_ablated(stage, x, gamma, wqkv, wout, bias_flat, cos_t, 
 
 
 def fused_spatial_linear_layer(x, gamma, wqkv, wout, bout,
-                               heads: int, dim_head: int, eps: float = 1e-5):
+                               heads: int, dim_head: int, eps: float = 1e-5, partial: bool = False):
     """`x + to_out(linear_attn(to_qkv(LN(x))))` per frame.
 
     Args:
       x: `[B, F, HW, C]`; gamma: `[C]` fp32; wqkv: `[C, 3*heads*d]`;
       wout: `[heads*d, C]`; bout: `[C]` fp32 (to_out bias).
+      partial: the head-shard mode of tensor parallelism: `heads` are one
+        rank's heads (its q|k|v columns of `wqkv`, rows of `wout`) and the
+        result is the fp32 `to_out` partial over them, with no `bout`, no
+        residual and no rounding.
 
-    Returns `[B, F, HW, C]`. The kernel needs d = 32, and in bf16 C % 16 ==
-    0 and 16-byte aligned tensors; two launches per call.
+    Returns `[B, F, HW, C]` (fp32 with `partial`). The kernel needs d = 32,
+    and in bf16 C % 16 == 0 and 16-byte aligned tensors; two launches per
+    call. `.launches` counts every call, `.partial_launches` those in the
+    head-shard mode.
     """
     if x.device.type == "cpu":
         return fused_spatial_linear_layer_plain(
-            x, gamma, wqkv, wout, bout, heads, dim_head, eps
-        )
+            x, gamma, wqkv, wout, bout, heads, dim_head, eps, partial)
     name = "fused_spatial_linear_layer"
     b, f, n, c = x.shape
     hd = heads * dim_head
@@ -498,8 +509,7 @@ def fused_spatial_linear_layer(x, gamma, wqkv, wout, bout,
         raise ValueError(f"{name}: needs d=32 and bout [C]")
     # per-head normalized contexts, the only intermediate in device memory
     ctx = torch.empty((b, f, heads, dim_head, dim_head), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    lib = _build.load(name)
+    out = torch.empty_like(x, dtype=torch.float32 if partial else x.dtype)
     ints = (b, f, n, c, heads)
     if x.dtype == torch.bfloat16:
         if c % 16:
@@ -509,15 +519,14 @@ def fused_spatial_linear_layer(x, gamma, wqkv, wout, bout,
         cp, op = plan["context"], plan["output"]
         ints += (cp["rows"], cp["head_groups"], cp["splits"], op["rows"], op["cluster"])
     fname = "launch_fused_spatial_linear_layer_" + _suffix(x.dtype)
-    fn = getattr(lib, fname)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * len(ints) + [ctypes.c_float, ctypes.c_void_p]
+    fn = _build.bind(name, fname, [_PTR] * 7 + [_INT] * (len(ints) + 1) + [ctypes.c_float, _PTR])
     code = fn(
         *(_build.ptr(t) for t in (x, gamma, wqkv, wout, bout, ctx, out)),
-        *ints, eps, _build.stream(x.device),
+        *ints, int(partial), eps, _build.stream(x.device),
     )
-    _build.check(lib, fname, code)
+    _build.check(_build.load(name), fname, code)
     fused_spatial_linear_layer.launches += 1
+    fused_spatial_linear_layer.partial_launches += int(partial)
     return out
 
 
@@ -529,8 +538,7 @@ def linear_layer_smem():
     `smem(kernel, c, rows, heads, groups)` bytes, kernel 0 the context launch
     (`groups` head groups), 1 the output launch (clusters of `groups`).
     Builds and loads the library (the card's toolchain)."""
-    fn = _build.load("fused_spatial_linear_layer").fused_spatial_linear_layer_bf16_smem
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 5
+    fn = _build.bind("fused_spatial_linear_layer", "fused_spatial_linear_layer_bf16_smem", [_INT] * 5)
     return lambda kernel, c, rows, heads, groups: fn(kernel, c, rows, heads, groups)
 
 
@@ -718,14 +726,11 @@ def _headpacked_chunks(qkv, heads):
 def _launch_headpacked_fwd(qkv, bias_flat, cos_t, sin_t, heads):
     b, f, hw, thd = qkv.shape
     out = torch.empty((b, f, hw, thd // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.load("headpacked_attention")
     name = "launch_headpacked_fwd_" + _suffix(qkv.dtype)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _build.bind("headpacked_attention", name, [_PTR] * 5 + [_INT] * 5 + [_PTR])
     code = fn(*(_build.ptr(t) for t in (qkv, bias_flat, cos_t, sin_t, out)),
               b, f, hw, heads, _headpacked_chunks(qkv, heads), _build.stream(qkv.device))
-    _build.check(lib, name, code)
+    _build.check(_build.load("headpacked_attention"), name, code)
     headpacked_temporal_attention.launches += 1
     return out
 
@@ -742,17 +747,14 @@ def _launch_headpacked_bwd(qkv, bias_flat, cos_t, sin_t, do, heads, want_dbias: 
     if want_dbias:
         partial = torch.empty((b, heads, chunks, f, f), dtype=torch.float32, device=qkv.device)
         dbias = torch.empty_like(bias_flat)
-    lib = _build.load("headpacked_attention")
     name = "launch_headpacked_bwd_" + _suffix(qkv.dtype)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _build.bind("headpacked_attention", name, [_PTR] * 8 + [_INT] * 5 + [_PTR])
     null = ctypes.c_void_p(None)
     code = fn(*(_build.ptr(t) for t in (qkv, bias_flat, cos_t, sin_t, do, dqkv)),
               null if partial is None else _build.ptr(partial),
               null if dbias is None else _build.ptr(dbias),
               b, f, hw, heads, chunks, _build.stream(qkv.device))
-    _build.check(lib, name, code)
+    _build.check(_build.load("headpacked_attention"), name, code)
     headpacked_temporal_attention.backward_launches += 1
     return dqkv, dbias
 
@@ -897,21 +899,20 @@ def packed_temporal_attention(qkv, bias, heads: int, dim_head: int, pack: int):
     if qkv.dtype == torch.bfloat16:
         _check_aligned(name, qkv, out)
         chunks = _packed_chunks(hw, b, heads, f, pack, _sm_count(qkv.device.index))
-    lib = _build.load("packed_attention")
     fname = "launch_packed_attention_" + _suffix(qkv.dtype)
-    fn = getattr(lib, fname)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _build.bind("packed_attention", fname, [_PTR] * 3 + [_INT] * 6 + [_PTR])
     code = fn(_build.ptr(qkv), _build.ptr(bias), _build.ptr(out), b, f, hw, heads, pack, chunks,
               _build.stream(qkv.device))
-    _build.check(lib, fname, code)
+    _build.check(_build.load("packed_attention"), fname, code)
     packed_temporal_attention.launches += 1
     return out
 
 
 fused_temporal_layer.launches = 0
+fused_temporal_layer.partial_launches = 0
 fused_temporal_layer_ablated.launches = 0
 packed_temporal_attention.launches = 0
 fused_spatial_linear_layer.launches = 0
+fused_spatial_linear_layer.partial_launches = 0
 headpacked_temporal_attention.launches = 0
 headpacked_temporal_attention.backward_launches = 0

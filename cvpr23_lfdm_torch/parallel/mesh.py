@@ -1,5 +1,5 @@
-"""The `data` mesh over processes and its collectives (the `data`-axis part of
-`cvpr23_lfdm_tpu/parallel/mesh.py`).
+"""The `data` and `model` axes of a mesh over processes and their collectives
+(counterpart of `cvpr23_lfdm_tpu/parallel/mesh.py`).
 
 In the JAX package XLA's partitioner turns a batch sharded over the `data`
 axis into collectives; here each rank is one process holding its
@@ -14,8 +14,13 @@ contiguous rows of every global batch, and the collectives are explicit:
 `local_rows` is the one place that cuts a global tensor to this rank's
 rows: every random draw of a dp run is made at the global shape from the
 same generator on every rank, so an N-rank run draws what the one-process
-run draws (threefry gives JAX this for free). The `model` and `space` axes
-(`UNET_TP_RULES`, `tp_spec`, `shard_variables`) are not ported yet.
+run draws (threefry gives JAX this for free).
+
+The `model` axis (tensor parallelism of the UNet, the second section):
+`UNET_TP_RULES` and `tp_spec` as in the JAX package, `shard_variables` /
+`gather_variables` between the one-process state and a rank's shard, and
+the explicit collectives of the tensor-parallel form
+(`models/unet3d.py::shard_unet`). The `space` axis is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,18 +38,25 @@ from cvpr23_lfdm_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A 1-D `data` mesh: `size` ranks in `group` (None for one rank), this
-    rank at `rank`, its tensors on `device`."""
+    """A `data` mesh, or a `data` x `model` mesh. `size` ranks in `group`
+    (None for one rank) share this rank's model index and split the batch,
+    this rank at `rank` of them; `model_size` ranks in `model_group` (None
+    for one) share its data index and split the UNet's heads and channels,
+    this rank at `model_rank`. Its tensors are on `device`."""
 
     size: int
     rank: int
     group: object
     device: torch.device
     axis_names: tuple = ("data",)
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: object = None
 
     @property
     def shape(self) -> dict:
-        return {"data": self.size}
+        sizes = {"data": self.size, "model": self.model_size}
+        return {a: sizes[a] for a in self.axis_names}
 
 
 def _canonical(device) -> torch.device:
@@ -55,23 +67,52 @@ def _canonical(device) -> torch.device:
 
 
 def make_mesh(shape: int | tuple | None = None, axis_names: tuple = ("data",), device=None) -> Mesh:
-    """The `data` mesh: every rank of the process group (the default), or
-    `shape` 1 for this rank alone. `device`: this rank's device (default the
+    """The mesh over every rank of the process group (the default: one
+    `data` axis), or `shape` 1 for this rank alone. `axis_names` may name
+    `data` and `model` in either order, as the JAX `make_mesh((dp, tp),
+    ("data", "model"))`: the ranks fill the mesh row-major, the last axis
+    fastest, and every rank creates every data group and then every model
+    group, in the same order. `device`: this rank's device (default the
     one `init_distributed` chose, else the CUDA card)."""
-    if tuple(axis_names) != ("data",):
-        raise NotImplementedError(f"mesh axes {axis_names}: only ('data',) is ported; the "
-                                  "'model' and 'space' axes wait for the tp and sp slices")
-    if isinstance(shape, (tuple, list)):
-        (shape,) = shape
+    axis_names = tuple(axis_names)
+    if "space" in axis_names:
+        raise NotImplementedError(f"mesh axes {axis_names}: the 'space' axis is not ported yet (the "
+                                  "spatial-partitioning slice of the port, ROADMAP item 6)")
+    if not axis_names or any(a not in ("data", "model") for a in axis_names) \
+            or len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"mesh axes {axis_names}: name 'data' and 'model', each at most once")
+    shape = (shape,) if shape is None or isinstance(shape, int) else tuple(shape)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} for axes {axis_names}")
     world = process_count()
-    n = world if shape is None else int(shape)
-    if n not in (1, world):
-        raise ValueError(f"a data mesh of {n} ranks needs {n} processes; this run has {world}")
+    if shape == (None,):
+        shape = (world,)
+    sizes = dict(zip(axis_names, (int(n) for n in shape)))
+    dp, tp = sizes.get("data", 1), sizes.get("model", 1)
     device = _canonical(resolve_device(device) if device is not None
                         else local_device() or resolve_device(None))
-    if n == 1:
-        return Mesh(1, 0, None, device)
-    return Mesh(n, process_index(), dist.group.WORLD, device)
+    if dp * tp == 1:
+        return Mesh(1, 0, None, device, axis_names)
+    if dp * tp != world:
+        raise ValueError(f"a mesh of {dp * tp} ranks ({sizes}) needs {dp * tp} processes; "
+                         f"this run has {world}")
+    if tp == 1:
+        return Mesh(dp, process_index(), dist.group.WORLD, device, axis_names)
+    # rank -> (data index, model index), row-major over `axis_names`
+    grid = np.arange(world).reshape(shape)
+    if axis_names[0] == "model":
+        grid = grid.T
+    grid = grid.reshape(dp, tp)  # grid[d, m]: the rank at data index d, model index m
+    me = process_index()
+    d, m = (int(i[0]) for i in np.nonzero(grid == me))
+    groups = {}
+    for axis, lines in (("data", grid.T), ("model", grid)):
+        for line in lines:
+            if len(line) > 1:
+                g = dist.new_group([int(r) for r in line])
+                if me in line:
+                    groups[axis] = g
+    return Mesh(dp, d, groups.get("data"), device, axis_names, tp, m, groups.get("model"))
 
 
 def check_device(mesh: Mesh, device) -> None:
@@ -203,37 +244,51 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def _state_tensors(obj) -> list:
-    """The tensors of a module (parameters, buffers) or of an optimizer's
-    per-parameter state (`MultistepAdam`'s Adam too)."""
+    """The tensors of a module (parameters, buffers), of an optimizer's
+    per-parameter state (`MultistepAdam`'s Adam too), or of a list."""
+    if isinstance(obj, (list, tuple)):
+        return list(obj)
     if isinstance(obj, torch.nn.Module):
         return list(obj.parameters()) + list(obj.buffers())
     optimizer = getattr(obj, "adam", obj)
     return [v for s in optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
 
 
-def replicate(obj, mesh: Mesh):
-    """Broadcast the tensors of a module (parameters, buffers) or an
-    optimizer (its moments and step counts) from rank 0, in place, so that
-    every rank holds rank 0's values; returns `obj`."""
-    if mesh.size > 1:
-        src = dist.get_global_rank(mesh.group, 0)
-        _flat_collective(_state_tensors(obj), lambda flat: dist.broadcast(flat, src, group=mesh.group),
+def _axis(mesh: Mesh, axis: str) -> tuple:
+    """(size, group) of the mesh's `data` or `model` axis."""
+    if axis == "data":
+        return mesh.size, mesh.group
+    if axis == "model":
+        return mesh.model_size, mesh.model_group
+    raise ValueError(f"mesh axis {axis!r}")
+
+
+def replicate(obj, mesh: Mesh, axis: str = "data"):
+    """Broadcast the tensors of a module (parameters, buffers), an optimizer
+    (its moments and step counts) or a list from the first rank of this
+    rank's `axis` group, in place, so that every rank of the group holds
+    its values; returns `obj`."""
+    size, group = _axis(mesh, axis)
+    if size > 1:
+        src = dist.get_global_rank(group, 0)
+        _flat_collective(_state_tensors(obj), lambda flat: dist.broadcast(flat, src, group=group),
                          mesh.device)
     return obj
 
 
-def states_agree(obj, mesh: Mesh) -> bool:
-    """True when every rank holds the same tensors in `obj` (see
-    `replicate`): per tensor the float64 sum and sum of squares, their
-    largest and smallest values over the ranks compared."""
-    if mesh.size == 1:
+def states_agree(obj, mesh: Mesh, axis: str = "data") -> bool:
+    """True when every rank of this rank's `axis` group holds the same
+    tensors in `obj` (see `replicate`): per tensor the float64 sum and sum
+    of squares, their largest and smallest values over the ranks compared."""
+    size, group = _axis(mesh, axis)
+    if size == 1:
         return True
     sums = [s.to(mesh.device) for t in _state_tensors(obj)
             for s in (t.detach().double().sum(), t.detach().double().square().sum())]
     hi = torch.stack(sums)
     lo = -hi
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group)
-    dist.all_reduce(lo, op=dist.ReduceOp.MAX, group=mesh.group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MAX, group=group)
     return bool(torch.equal(hi, -lo))
 
 
@@ -286,3 +341,245 @@ def device_prefetch(batches, mesh: Mesh, depth: int = 1, keys=None):
         for k in moved:
             batch[k].record_stream(stream)
         yield batch
+
+
+# ------------------------------------------------------------------ tensor parallelism
+#
+# The `model` axis (`cvpr23_lfdm_tpu/parallel/mesh.py`'s tensor-parallel
+# rules): Megatron-style partitioning of the UNet. The JAX package lets
+# GSPMD place the collectives; here each rank is a process that holds its
+# shard of every partitioned leaf and runs the collectives below itself
+# (`models/unet3d.py::shard_unet`).
+
+UNET_TP_RULES: tuple[tuple[str, tuple], ...] = (
+    # 3-channel output heads + norms + embeddings: replicate
+    ("*final_conv/*", ()),
+    ("*occlusion_conv/*", ()),
+    ("*norm/*", ()),
+    ("*relative_attention_bias*", ()),
+    ("*null_cond_emb", ()),
+    # attention: column-parallel QKV, row-parallel output projection
+    ("*to_qkv/kernel", (None, "model")),
+    ("*to_out/kernel", ("model", None)),
+    ("*to_out/bias", ()),  # row-parallel output is full-size after the sum
+    # FiLM conditioning MLPs: column-parallel into the sharded channels
+    ("*mlp/kernel", (None, "model")),
+    ("*mlp/bias", ("model",)),
+    # (1,k,k) convs (proj/res_conv/up/down): output-channel sharding
+    ("*conv/kernel", (None, None, None, "model")),
+    ("*conv/bias", ("model",)),
+    ("*res_conv/kernel", (None, None, None, None, "model")),
+    ("*res_conv/bias", ("model",)),
+    ("*upsample/kernel", (None, None, None, "model")),
+    ("*upsample/bias", ("model",)),
+)
+
+
+def tp_spec(path: str, shape: tuple, axis_size: int, rules=UNET_TP_RULES, axis: str = "model") -> tuple:
+    """The JAX `PartitionSpec` of one UNet leaf as a tuple (`()`:
+    replicated). `path` is the '/'-joined JAX variable path, `shape` the
+    JAX shape. First matching rule wins; unmatched leaves shard their last
+    axis where divisible; an indivisible sharded axis replicates."""
+    import fnmatch
+
+    def resolve(entries):
+        spec = tuple(axis if e == "model" else e for e in entries)
+        for dim, name in enumerate(spec):
+            if name is not None and shape[dim] % axis_size != 0:
+                return ()
+        return spec
+
+    for pat, entries in rules:
+        if fnmatch.fnmatch(path, pat):
+            if len(entries) == 0:
+                return ()
+            if len(entries) != len(shape):
+                continue  # rule written for a different rank
+            return resolve(entries)
+    if len(shape) >= 2 and shape[-1] % axis_size == 0:
+        return resolve([None] * (len(shape) - 1) + [axis])
+    return ()
+
+
+def shard_plan(key: str, shape: tuple, size: int) -> tuple[int, int] | None:
+    """`(port axis, parts)` of a UNet entry sharded over a `model` axis of
+    `size` ranks, None where `tp_spec` replicates it. A rank holds the
+    same slice of each of the `parts` equal blocks of that axis: q, k and v
+    of its heads for `to_qkv` (3), scale and shift of its channels for a
+    FiLM `mlp` (2), else one contiguous slice (1)."""
+    import fnmatch
+
+    from cvpr23_lfdm_torch.utils.bench_ckpt import jax_layout
+
+    _, path, jshape, axes = jax_layout(key, shape)
+    spec = tp_spec(path, jshape, size)
+    if "model" not in spec:
+        return None
+    axis = axes[spec.index("model")]
+    parts = 3 if fnmatch.fnmatch(path, "*to_qkv/kernel") else (
+        2 if fnmatch.fnmatch(path, "*mlp/kernel") or fnmatch.fnmatch(path, "*mlp/bias") else 1)
+    if shape[axis] % (parts * size):
+        raise ValueError(f"{key}: {shape[axis]} entries along axis {axis} do not split into "
+                         f"{parts} blocks over {size} model ranks")
+    return axis, parts
+
+
+def shard_index(n: int, parts: int, size: int, rank: int) -> torch.Tensor:
+    """The entries of an axis of `n` that model rank `rank` of `size`
+    holds: its `1 / size` of each of the `parts` blocks, in order."""
+    k = n // parts
+    w = k // size
+    return torch.cat([torch.arange(t * k + rank * w, t * k + (rank + 1) * w) for t in range(parts)])
+
+
+def shard_variables(state: dict, mesh: Mesh) -> dict:
+    """This rank's shard of a one-process UNet state dict (or of any dict
+    keyed as one, such as Adam's moments) under `UNET_TP_RULES`: each
+    sharded entry cut to this model rank's slice (`shard_plan`), the rest
+    as they are."""
+    if mesh.model_size == 1:
+        return dict(state)
+    out = {}
+    for key, value in state.items():
+        plan = shard_plan(key, tuple(value.shape), mesh.model_size)
+        if plan is None:
+            out[key] = value
+        else:
+            axis, parts = plan
+            idx = shard_index(value.shape[axis], parts, mesh.model_size, mesh.model_rank)
+            out[key] = value.index_select(axis, idx.to(value.device)).contiguous()
+    return out
+
+
+def gather_variables(state: dict, mesh: Mesh, shapes: dict) -> dict:
+    """The one-process state dict of a sharded one (`shard_variables`'s
+    inverse, bit for bit): every entry that `shard_plan` shards at its
+    one-process shape in `shapes` (by key; `Unet3D.tp_shapes`) gathered
+    over the model group and put back in place. Every rank of the group
+    calls it."""
+    if mesh.model_size == 1:
+        return dict(state)
+    size, out = mesh.model_size, {}
+    for key, value in state.items():
+        plan = shard_plan(key, shapes[key], size)
+        if plan is None:
+            out[key] = value
+            continue
+        axis, parts = plan
+        pieces = _all_gather(value.contiguous(), mesh.model_group, size)
+        full = value.new_empty(shapes[key])
+        for r, piece in enumerate(pieces):
+            full.index_copy_(axis, shard_index(shapes[key][axis], parts, size, r).to(value.device), piece)
+        out[key] = full
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, size: int) -> list:
+    """The group's tensors of `x`'s shape, in group-rank order. A bf16
+    tensor travels as fp32 through gloo (exact both ways)."""
+    wire = x.float() if x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo" else x
+    parts = [torch.empty_like(wire) for _ in range(size)]
+    dist.all_gather(parts, wire.contiguous(), group=group)
+    return [p.to(x.dtype) for p in parts]
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of `x`, a new tensor of `x`'s dtype. A bf16 or fp16
+    `x` is summed in fp32 and rounded once, as one process rounds the
+    product that the ranks' partials split."""
+    out = (x.float() if x.dtype in (torch.bfloat16, torch.float16) else x.clone()).contiguous()
+    dist.all_reduce(out, group=group)
+    return out.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Into a column-parallel layer: identity forward; backward, the sum
+    over the model group of the ranks' partial input gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mesh.model_group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Out of a row-parallel layer: the sum of the ranks' partials forward;
+    identity backward (every rank uses the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce(x, mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """The ranks' channel shards concatenated along the last axis; backward,
+    this rank's slice of the gradient (the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return torch.cat(_all_gather(x, mesh.model_group, mesh.model_size), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.mesh.model_rank * ctx.width, ctx.width).contiguous(), None
+
+
+# The tp collectives below return their input as it is for no mesh (`mesh`
+# None, a module's one-process form) or a model axis of one rank, so that
+# one forward body serves both forms.
+
+
+def _one_rank(mesh: Mesh | None) -> bool:
+    return mesh is None or mesh.model_size == 1
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    return x if _one_rank(mesh) else _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    return x if _one_rank(mesh) else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_channels(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    return x if _one_rank(mesh) else _GatherChannels.apply(x, mesh)
+
+
+def model_slice(t: torch.Tensor, mesh: Mesh | None, dim: int = 0) -> torch.Tensor:
+    """This model rank's contiguous `1 / model_size` of `t` along `dim` (a
+    view: the gradient reaches only that slice)."""
+    if _one_rank(mesh):
+        return t
+    n = t.shape[dim] // mesh.model_size
+    return t.narrow(dim, mesh.model_rank * n, n)
+
+
+def sum_model_gradients(params, mesh: Mesh) -> None:
+    """Replace each existing gradient by its sum over the model group: the
+    replicated leaves that a rank uses only on its shard (a GroupNorm's
+    channels, its heads' position bias) each hold the part of the
+    gradient that their rank's slice made."""
+    if mesh.model_size == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    _flat_collective(grads, lambda flat: dist.all_reduce(flat, group=mesh.model_group), mesh.device)
+
+
+def sharded_square_sum(tensors, mesh: Mesh) -> torch.Tensor:
+    """The fp32 sum of squares of the whole tensors of which this rank holds
+    the shards `tensors` (summed over the model group)."""
+    sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for t in tensors:
+        sq = sq + torch.linalg.vector_norm(t.float()).square().to(mesh.device)
+    if mesh.model_size > 1:
+        dist.all_reduce(sq, group=mesh.model_group)
+    return sq

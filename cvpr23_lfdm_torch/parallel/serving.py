@@ -9,8 +9,15 @@ one-process run), then the outputs are gathered on every rank. The
 gaussians are drawn at the padded global batch's shape from the same
 generator on every rank, and each rank keeps its rows: the video equals
 the one-process video of the padded batch up to the order of sums inside
-a rank's smaller batch. `tp` (the UNet tensor-sharded) and `sp` (the
-image height partitioned) are not ported yet: a mesh with either raises.
+a rank's smaller batch.
+
+`--mesh dp=N,tp=M` adds the `model` axis: N * M processes, the UNet of
+each in its tensor-parallel form (`models/unet3d.py::shard_unet`: a
+rank's heads and channels, the fused layers in their head-shard mode),
+the LFAE replicated as in the JAX package. The M ranks of a model group
+sample the same rows with the same draws; rows are gathered over the
+`data` axis only. `sp` (the image height partitioned) is not ported yet:
+a mesh with it raises.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from cvpr23_lfdm_torch.diffusion.gaussian_diffusion import _normal
 from cvpr23_lfdm_torch.parallel.distributed import process_count
+from cvpr23_lfdm_torch.models.unet3d import check_tp, shard_unet
 from cvpr23_lfdm_torch.parallel.mesh import all_gather_rows, local_rows, make_mesh
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -66,21 +74,26 @@ def parse_mesh_spec(spec: str) -> dict[str, int]:
 
 
 def serving_mesh(spec: str, device=None):
-    """The `data` mesh of a `--mesh` spec (None for an empty one): `dp=N`
-    must be the number of processes, since a dp member is a process here.
-    `tp` or `sp` above 1 raise: those axes are not ported yet."""
+    """The mesh of a `--mesh` spec (None for an empty one): `dp=N` alone the
+    `data` mesh, with `tp=M` above 1 the `data` x `model` mesh. `N * M`
+    must be the number of processes, since a mesh member is a process
+    here, and M must divide the UNet's 8 GroupNorm groups. `sp` above 1
+    raises: that axis is not ported yet."""
     axes = parse_mesh_spec(spec)
     if not axes:
         return None
-    for k, slice_ in (("tp", "tensor-parallel"), ("sp", "spatial-partitioning")):
-        if axes.get(k, 1) > 1:
-            raise NotImplementedError(f"--mesh {spec!r}: the {k} axis is not ported yet (the "
-                                      f"{slice_} slice of the port, ROADMAP item 6)")
-    dp, world = axes.get("dp", 1), process_count()
-    if dp != world:
-        raise ValueError(f"--mesh {spec!r}: dp={dp} needs {dp} processes, one per device "
+    if axes.get("sp", 1) > 1:
+        raise NotImplementedError(f"--mesh {spec!r}: the sp axis is not ported yet (the "
+                                  "spatial-partitioning slice of the port, ROADMAP item 6)")
+    dp, tp, world = axes.get("dp", 1), axes.get("tp", 1), process_count()
+    check_tp(tp)
+    if dp * tp != world:
+        what = f"dp={dp}" + (f" x tp={tp}" if tp > 1 else "")
+        raise ValueError(f"--mesh {spec!r}: {what} needs {dp * tp} processes, one per device "
                          f"(--num-processes or torchrun); this run has {world}")
-    return make_mesh(dp, device=device)
+    if tp == 1:
+        return make_mesh(dp, device=device)
+    return make_mesh((dp, tp), ("data", "model"), device=device)
 
 
 class LocalDraws:
@@ -113,8 +126,9 @@ def _pad_rows(x: torch.Tensor, rows: int, dim: int = 0) -> torch.Tensor:
 def sample_video_sharded(model, mesh, ref_imgs, conds, cond_scale: float = 1.0,
                          generator: torch.Generator | None = None, init_img=None,
                          noise_seq=None) -> dict:
-    """Data-parallel `FlowDiffusion.sample_video` over `mesh`; every rank
-    calls it with the same global request batch.
+    """Data-parallel `FlowDiffusion.sample_video` over `mesh` (with a
+    `model` axis, the UNet sharded first by `shard_unet`); every rank calls
+    it with the same global request batch.
 
     `ref_imgs [B, H, W, 3]` and `conds [B, cond_dim]` are padded (the last
     row repeated) to a multiple of the mesh's size; this rank samples its
@@ -123,6 +137,7 @@ def sample_video_sharded(model, mesh, ref_imgs, conds, cond_scale: float = 1.0,
     per-step noise at the padded batch's shape; `init_img [B, F, h, w, 3]`
     and `noise_seq [steps, B, F, h, w, 3]` inject them (the padded batch's
     rows, or the request's, padded as above)."""
+    shard_unet(model.unet, mesh)
     b = ref_imgs.shape[0]
     rows = b + (-b) % mesh.size
     d = model.cfg

@@ -16,7 +16,8 @@ directory through `CheckpointManager`. Sampling draws from one
 `--mesh dp=N` (N processes: `--coordinator`, `--num-processes`,
 `--process-id`, or torchrun): every class in one request batch, sharded
 over the processes (`parallel/serving.py::sample_video_sharded`); rank 0
-writes the GIFs.
+writes the GIFs. `--mesh dp=N,tp=M` (N * M processes) shards the UNet of
+each over M ranks as well (its heads and channels; M divides 8).
 
 Usage: python -m cvpr23_lfdm_torch.scripts.demo [--device cpu] [--classes ...]
 """
@@ -168,7 +169,7 @@ def run(cfg, args) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args, multi_device=True)
+    setup(args, multi_device=True, tp=True)
     with process_group(args):
         return run(build_config(args), args)
 

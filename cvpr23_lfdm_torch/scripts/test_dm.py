@@ -18,7 +18,10 @@ no windows to fit.
 request batch sharded over the processes
 (`parallel/serving.py::sample_video_sharded`), first, from the generator of
 `--seed`; rank 0 then runs the monitoring forwards and the metrics and
-writes the GIFs, the other ranks return `{}`.
+writes the GIFs, the other ranks return `{}`. `--mesh dp=N,tp=M` (N * M
+processes) shards the UNet of each over M ranks as well (its heads and
+channels; M divides 8); rank 0's model group then runs the monitoring
+forwards together.
 
 Usage: python -m cvpr23_lfdm_torch.scripts.test_dm [--device cpu] [--synthetic]
        [--random-metric-weights] [--num-videos 4]
@@ -170,8 +173,9 @@ def run(cfg, args) -> dict:
         conds = torch.from_numpy(np.concatenate([embedder([it["text"]])[0] for it in items])).to(dev)
         sharded = sample_video_sharded(model, mesh, refs, conds, args.cond_scale, generator=gen)
         print(f"sampled {n} videos on mesh {args.mesh}")
-        if not is_primary():
+        if mesh.rank != 0:  # the monitoring forwards run in rank 0's model group only
             return {}
+    log = print if is_primary() else (lambda *a: None)
     for i in range(n):
         item = dataset[i]
         vid = torch.from_numpy(item["video"])[None].to(dev)
@@ -195,9 +199,9 @@ def run(cfg, args) -> dict:
             fake_set.append(fake[0].cpu().numpy())
             classes.append(item["text"])
             subjects.append(item["subject"])
-        print(f"[{i + 1}/{n}] {item['name']}: loss {float(loss):.4f} rec {rec[-1]:.4f} "
+        log(f"[{i + 1}/{n}] {item['name']}: loss {float(loss):.4f} rec {rec[-1]:.4f} "
               f"warp {warp[-1]:.4f} psnr {psnrs[-1]:.2f} ssim {ssims[-1]:.3f}")
-        if args.save_video:
+        if args.save_video and is_primary():
             rows = np.concatenate([to_uint8(item["video"]), to_uint8(fake[0].cpu().numpy())], axis=2)
             save_gif(os.path.join(out_dir, f"{item['name']}.gif"), rows)
     result = {"videos": n, "rec_loss": float(np.mean(rec)), "warp_loss": float(np.mean(warp)),
@@ -216,13 +220,13 @@ def run(cfg, args) -> dict:
         result["cfvd"] = fvd.grouped(real_arr, fake_arr, classes, classes)[0]
         result["sfvd"] = fvd.grouped(real_arr, fake_arr, subjects, subjects)[0]
         line += f" fvd {result['fvd']:.4g} cfvd {result['cfvd']:.4g} sfvd {result['sfvd']:.4g}"
-    print(line)
-    return result
+    log(line)
+    return result if is_primary() else {}
 
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args, multi_device=True)
+    setup(args, multi_device=True, tp=True)
     with process_group(args):
         return run(build_config(args), args)
 

@@ -15,6 +15,18 @@ global batch's shape from the step's generator, as one process would, and
 keeps its own rows; after `backward` the gradients are averaged over the
 ranks before Adam, so every rank takes the one-process step on the global
 batch, up to the order of the sums.
+
+On a `data` x `model` mesh (the counterpart of the JAX trainer's
+`shard_variables` of the UNet and its Adam moments) the UNet runs in its
+tensor-parallel form (`models/unet3d.py::shard_unet`): each rank holds and
+updates its shard of the partitioned parameters and their moments. After
+`backward` the replicated parameters that a rank uses only on its slice
+(GroupNorm affine, the position bias, the time-MLP biases) have their
+gradients summed over the model group, then every gradient is averaged
+over the data group; `grad_norm` counts each sharded tensor's squares
+over the model group and each replicated one once. Checkpoints hold the
+one-process format (`gather_variables`), so a tp run and a one-process run
+restore each other's.
 """
 
 from __future__ import annotations
@@ -28,8 +40,10 @@ import torch
 
 from cvpr23_lfdm_torch.config import ExperimentConfig
 from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion, build_unet
+from cvpr23_lfdm_torch.models.unet3d import shard_unet, tp_parameters
 from cvpr23_lfdm_torch.parallel.mesh import (
-    check_device, device_prefetch, local_rows, make_mesh, mean_gradients, mean_metrics, replicate,
+    check_device, device_prefetch, gather_variables, local_rows, make_mesh, mean_gradients,
+    mean_metrics, replicate, shard_variables, sharded_square_sum, sum_model_gradients,
 )
 from cvpr23_lfdm_torch.train.optim import MultistepAdam
 
@@ -57,8 +71,10 @@ class DMTrainer:
       model: a `FlowDiffusion(..., training=True)` with its frozen LFAE
         weights loaded; built from `cfg` on `device` when None (the CUDA
         card unless `device` says otherwise), with random LFAE weights.
-      mesh: the `data` mesh (`parallel/mesh.py::make_mesh`) on the model's
-        device; None: this process alone.
+      mesh: the `data` mesh, or a `data` x `model` mesh
+        (`parallel/mesh.py::make_mesh`), on the model's device; None: this
+        process alone. With a `model` axis the model's UNet is sharded in
+        place.
     """
 
     def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int,
@@ -70,6 +86,7 @@ class DMTrainer:
         self.device = model.device
         self.mesh = make_mesh(1, device=self.device) if mesh is None else mesh
         check_device(self.mesh, self.device)
+        shard_unet(model.unet, self.mesh)
         self._new_optimizer()
 
     def _new_optimizer(self) -> None:
@@ -90,7 +107,7 @@ class DMTrainer:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(seed)
                 fresh = build_unet(self.cfg.lfae, self.cfg.diffusion, training=True)
-            self.model.unet.load_state_dict(fresh.state_dict())
+            self.model.unet.load_state_dict(shard_variables(fresh.state_dict(), self.mesh))
         self._new_optimizer()
         replicate(self.model, self.mesh)
         return DMTrainState(step=0)
@@ -100,9 +117,27 @@ class DMTrainer:
     def state_dict(self, state: DMTrainState) -> dict:
         """What a resumed run needs (the counterpart of the JAX package's
         `DMTrainState`): the step, the UNet and the Adam moments. The frozen
-        LFAE is not in it; a resumed run loads it again from its own source."""
-        return {"step": state.step, "unet": self.model.unet.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        LFAE is not in it; a resumed run loads it again from its own source.
+        On a `model` axis the UNet and the moments are gathered into the
+        one-process format: every rank calls it."""
+        net = self.model.unet
+        gather = lambda st, mesh: gather_variables(st, mesh, net.tp_shapes)  # noqa: E731
+        return {"step": state.step, "unet": gather(net.state_dict(), self.mesh),
+                "optimizer": self._moments(self.optimizer.state_dict(), gather)}
+
+    def _moments(self, saved: dict, fn) -> dict:
+        """An optimizer state dict with `fn(state, mesh)` (a
+        `gather_variables` or `shard_variables`) applied to each moment,
+        keyed by its parameter's name."""
+        if self.mesh.model_size == 1:
+            return saved
+        names = [n for n, p in self.model.unet.named_parameters() if p.requires_grad]
+        per_param = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            moved = fn({names[i]: s[key] for i, s in saved["state"].items()}, self.mesh)
+            for i, s in saved["state"].items():
+                per_param.setdefault(i, dict(s))[key] = moved[names[i]]
+        return {**saved, "state": per_param}
 
     def load_state_dict(self, saved: dict) -> DMTrainState:
         """Restore a :meth:`state_dict` (e.g. `CheckpointManager.restore(...,
@@ -110,9 +145,9 @@ class DMTrainer:
         its parameters, then the saved moments into it, in that order (a new
         optimizer made after the load would start Adam afresh). On a mesh,
         rank 0's weights and moments are then broadcast to every rank."""
-        self.model.unet.load_state_dict(saved["unet"])
+        self.model.unet.load_state_dict(shard_variables(saved["unet"], self.mesh))
         self._new_optimizer()
-        self.optimizer.load_state_dict(saved["optimizer"])
+        self.optimizer.load_state_dict(self._moments(saved["optimizer"], shard_variables))
         replicate(self.model, self.mesh)
         replicate(self.optimizer, self.mesh)
         return DMTrainState(step=int(saved["step"]))
@@ -147,10 +182,13 @@ class DMTrainer:
             t=t, noise=noise, null_mask=null_mask, generator=rng,
         )
         aux["loss"].backward()
+        sharded, partial, whole = tp_parameters(self.model.unet)
+        sum_model_gradients(partial, self.mesh)
         mean_gradients(self.model.unet.parameters(), self.mesh)
-        grads = [p.grad for p in self.model.unet.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        grad_norm = torch.sqrt(
+            sharded_square_sum([p.grad for p in sharded if p.grad is not None], self.mesh)
+            + sum(torch.linalg.vector_norm(p.grad.float()).square()
+                  for p in partial + whole if p.grad is not None))
         lr = self.optimizer.step(state.step)
         metrics = {"loss": aux["loss"].detach(), "grad_norm": grad_norm, "lr": lr}
         if with_monitoring:
@@ -202,7 +240,7 @@ class DMTrainer:
             log_now = bool(log_every and (i + 1) % log_every == 0)
             state, metrics = self.train_step(
                 state, step_generator(seed, i, self.device), batch, with_monitoring=log_now)
-            if log_now and self.mesh.rank == 0:
+            if log_now and self.mesh.rank == 0 and self.mesh.model_rank == 0:
                 dt = time.perf_counter() - t0
                 print(
                     f"step {state.step}: loss {float(metrics['loss']):.4f} "

@@ -103,43 +103,61 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def jax_layout(key: str, shape: tuple) -> tuple[str, str, tuple, tuple]:
+    """`(collection, path, jax_shape, axes)` of a port state-dict entry: its
+    JAX collection and '/'-joined variable path, its JAX shape, and for
+    each JAX axis the port axis it holds (None: an added axis of size 1).
+    A deconv kernel (`*upsample/kernel`) is also flipped in both spatial
+    axes; the axes map leaves that out."""
+    path, s = key.split("."), tuple(shape)
+    col, name = "params", path[-1]
+    owner = path[-2] if len(path) > 1 else ""
+    axes = tuple(range(len(s)))
+    if name in ("running_mean", "running_var"):
+        col, name = "batch_stats", name.removeprefix("running_")
+    elif name == "weight":
+        if len(s) == 4 and owner.endswith("upsample"):
+            axes, name = (2, 3, 0, 1), "kernel"
+        elif len(s) == 4:
+            axes, name = (2, 3, 1, 0), "kernel"
+        elif len(s) == 2 and owner in _EMBED:
+            name = "embedding"
+        elif len(s) == 2 and owner in _CONV1X1X1:
+            axes, name = (None, None, None, 1, 0), "kernel"
+        elif len(s) == 2:
+            axes, name = (1, 0), "kernel"
+        elif len(s) == 1:
+            name = "scale"
+        else:
+            raise ValueError(f"unexpected weight shape {s} at {key}")
+    elif name not in ("bias", "gamma", "null_cond_emb"):
+        raise ValueError(f"no JAX leaf for {key}")
+    jshape = tuple(1 if a is None else s[a] for a in axes)
+    return col, "/".join(path[:-1] + [name]), jshape, axes
+
+
 def to_jax_params(state: dict) -> dict:
     """The JAX variable tree `{"params": ..., "batch_stats": ...}` (nested
     dicts of fp32 numpy arrays) of a state dict of the UNet, the LFAE, the
-    AVD network or the VGG, inverting :func:`from_jax_params`: `weight` OIHW
-    -> conv `kernel` HWIO (a `*upsample` module's `ConvTranspose2d` weight ->
-    its deconv kernel), `weight` `[out, in]` -> Dense `kernel` `[in, out]`
-    (`_CONV1X1X1`: `[1, 1, 1, in, out]`; `_EMBED`: `embedding` as it is), a
-    1-D `weight` -> `scale`, `running_mean` / `running_var` -> `batch_stats`
-    `mean` / `var`; `bias` and `gamma` keep their names."""
+    AVD network or the VGG, inverting :func:`from_jax_params` (the layout of
+    each leaf is :func:`jax_layout`'s): `weight` OIHW -> conv `kernel` HWIO
+    (a `*upsample` module's `ConvTranspose2d` weight -> its deconv kernel),
+    `weight` `[out, in]` -> Dense `kernel` `[in, out]` (`_CONV1X1X1`: `[1,
+    1, 1, in, out]`; `_EMBED`: `embedding` as it is), a 1-D `weight` ->
+    `scale`, `running_mean` / `running_var` -> `batch_stats` `mean` /
+    `var`; `bias`, `gamma` and the UNet's `null_cond_emb` keep their
+    names."""
     tree = {"params": {}, "batch_stats": {}}
     for key, value in state.items():
-        path = key.split(".")
         a = value.detach().cpu().numpy().astype(np.float32) if torch.is_tensor(value) else (
             np.asarray(value, np.float32))
-        col, name = "params", path[-1]
-        owner = path[-2] if len(path) > 1 else ""
-        if name in ("running_mean", "running_var"):
-            col, name = "batch_stats", name.removeprefix("running_")
-        elif name == "weight":
-            if a.ndim == 4 and owner.endswith("upsample"):
-                a, name = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
-            elif a.ndim == 4:
-                a, name = a.transpose(2, 3, 1, 0), "kernel"
-            elif a.ndim == 2 and owner in _EMBED:
-                name = "embedding"
-            elif a.ndim == 2 and owner in _CONV1X1X1:
-                a, name = a.T.reshape((1, 1, 1) + a.T.shape), "kernel"
-            elif a.ndim == 2:
-                a, name = a.T, "kernel"
-            elif a.ndim == 1:
-                name = "scale"
-            else:
-                raise ValueError(f"unexpected weight shape {a.shape} at {key}")
-        elif name not in ("bias", "gamma"):
-            raise ValueError(f"no JAX leaf for {key}")
+        col, path, jshape, axes = jax_layout(key, a.shape)
+        a = a.transpose([i for i in axes if i is not None]).reshape(jshape)
+        if path.endswith("upsample/kernel"):
+            a = a[::-1, ::-1]
         node = tree[col]
-        for p in path[:-1]:
+        *owners, name = path.split("/")
+        for p in owners:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(a)
     return {col: sub for col, sub in tree.items() if sub}

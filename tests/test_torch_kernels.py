@@ -152,7 +152,10 @@ def test_temporal_layer_smem_mirrors_the_kernel(dev):
     (1, 40, 16, 256, 8, 132), (1, 64, 16, 512, 8, 132), (1, 64, 1024, 64, 8, 132),
     (8, 40, 1024, 64, 8, 132), (2, 40, 6, 64, 2, 132), (2, 33, 6, 128, 16, 132),
     (2, 7, 130, 64, 8, 132), (1, 40, 100, 64, 3, 132), (1, 17, 1000, 128, 8, 12),
-    (1, 40, 16, 32, 8, 132), (2, 33, 6, 192, 16, 132), (1, 40, 64, 320, 8, 132)])
+    (1, 40, 16, 32, 8, 132), (2, 33, 6, 192, 16, 132), (1, 40, 64, 320, 8, 132),
+    # the serving shapes at a tp rank's 4 and 2 heads (the head-shard mode)
+    *[(1, 40, hw, c, h, 132) for c, hw in ((64, 1024), (128, 256), (64, 256), (256, 64), (128, 64),
+                                           (512, 16), (256, 16)) for h in (4, 2)]])
 def test_temporal_layer_plan_covers_every_pixel_once(b, f, hw, c, heads, sms):
     """The bf16 launch plan: cluster y of batch entry z owns pixels [y P,
     min((y+1) P, HW)), none empty, every pixel once; K divides heads and is
@@ -319,6 +322,64 @@ def test_fused_spatial_linear_layer_kernel(dev, dtype, b, f, n, c, inputs):
     assert torch.equal(out, A.fused_spatial_linear_layer(*args))
 
 
+# the head-shard mode of tensor parallelism: (C, HW) of the serving shapes
+# (and HW = 6, no power-of-two chunk), at 4 and 2 heads per rank
+_HEAD_SHARD_CASES = [(64, 1024), (128, 256), (256, 64), (512, 16), (64, 6)]
+
+
+def _rank_args(args, row, rank, size):
+    """One model rank's slice of 8-head layer arguments: q, k and v columns
+    of its heads in W_qkv, its rows of W_out, of the bias and the tables."""
+    from cvpr23_lfdm_torch.parallel.mesh import shard_index
+
+    heads = args[-2]
+    hl, hd = heads // size, heads * 32
+    x, gamma, wqkv, wout = args[:4]
+    cols = shard_index(3 * hd, 3, size, rank).to(x.device)
+    wq = wqkv.index_select(1, cols).contiguous()
+    wo = wout[rank * hl * 32:(rank + 1) * hl * 32].contiguous()
+    if row == 2:
+        return (x, gamma, wq, wo, args[4], hl, 32)
+    b, f = args[4].shape[:2]
+    bias = args[4].reshape(b, f, heads, f)[:, :, rank * hl:(rank + 1) * hl].reshape(b, f, hl * f).contiguous()
+    cos_t, sin_t = (t.index_select(1, cols).contiguous() for t in args[5:7])
+    return (x, gamma, wq, wo, bias, cos_t, sin_t, hl, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["unit", "branch"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("row", [1, 2])
+@pytest.mark.parametrize("c,hw", _HEAD_SHARD_CASES)
+def test_head_shard_mode_kernel(dev, row, dtype, heads, c, hw, inputs):
+    """`partial=True` on one rank's heads (8 heads over 8 / `heads` ranks):
+    each rank's fp32 out-projection partial against the plain version's, a
+    launch and a head-shard launch counted, the same bits twice; the
+    partials summed (+ bout), rounded and added to x against the whole
+    layer's kernel."""
+    branch = inputs == "branch"
+    if row == 1:
+        full = _temporal_args(dev, dtype, 1, 40, hw, c, 8, False, seed=3, branch=branch)
+        fn, plain = A.fused_temporal_layer, A.fused_temporal_layer_plain
+    else:
+        full = _linear_args(dev, dtype, 1, 40, hw, c, seed=3, branch=branch)
+        fn, plain = A.fused_spatial_linear_layer, A.fused_spatial_linear_layer_plain
+    total = 0.0
+    for rank in range(8 // heads):
+        args = _rank_args(full, row, rank, 8 // heads)
+        before = (fn.launches, fn.partial_launches)
+        out = fn(*args, partial=True)
+        assert (fn.launches, fn.partial_launches) == (before[0] + 1, before[1] + 1)
+        assert out.dtype == torch.float32 and out.shape == full[0].shape
+        _close(out, plain(*args, partial=True), dtype)
+        assert torch.equal(out, fn(*args, partial=True))
+        total = total + out
+    if row == 2:
+        total = total + full[4]
+    _close(full[0] + total.to(dtype), fn(*full), dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cluster,rows,heads,n,c", [
     (1, 16, 8, 100, 64), (2, 32, 8, 100, 128), (4, 64, 8, 48, 64), (8, 128, 8, 300, 64),
@@ -404,7 +465,10 @@ def test_linear_layer_plan_at_the_serving_shapes(c, hw):
     (1, 40, 1024, 64, 8, 132), (1, 40, 16, 512, 8, 132), (2, 6, 100, 48, 8, 132),
     (1, 6, 1, 64, 8, 132), (1, 40, 5000, 128, 8, 132), (2, 5, 33, 48, 3, 132),
     (1, 17, 1000, 320, 16, 12), (8, 40, 1024, 64, 8, 132), (1, 2, 70, 1024, 8, 132),
-    (1, 40, 200, 128, 8, 132), (1, 3, 1000, 64, 8, 132)])
+    (1, 40, 200, 128, 8, 132), (1, 3, 1000, 64, 8, 132),
+    # the serving shapes at a tp rank's 4 and 2 heads (the head-shard mode)
+    *[(1, 40, hw, c, h, 132) for c, hw in ((64, 1024), (128, 256), (64, 256), (256, 64), (128, 64),
+                                           (512, 16), (256, 16)) for h in (4, 2)]])
 def test_linear_layer_plan_covers_every_row_once(b, f, hw, c, heads, sms):
     """The bf16 plan: head groups G divide `heads` with at most 8 heads (one
     context warp each) per group, the smallest whose block fits; tiles of R
@@ -648,12 +712,29 @@ def test_packed_attention_kernel_at_uneven_chunks(dev, monkeypatch, sms, hw, f):
     _close(out, A.packed_temporal_attention_plain(qkv, bias, heads, 32, pack), torch.bfloat16)
 
 
+@pytest.mark.parametrize("b,hw,heads", [(b, hw, h) for b in (2, 5) for hw in (1024, 256, 64, 16)
+                                         for h in (8, 4, 2)])
+def test_headpacked_chunks_at_a_tp_ranks_heads(monkeypatch, b, hw, heads):
+    """The head-packed launch's pixel chunks per (batch, head) at 8 heads and
+    at a tp rank's 4 and 2 (the training step's HW, B=5 and the tp step's
+    B=2): a bf16 grid of about four blocks per SM of the H100, each chunk
+    one pixel or more, none past HW; the fp32 backward's chunks of up to 16
+    pixels."""
+    monkeypatch.setattr(A, "_sm_count", lambda index: 132)
+    bf16 = A._headpacked_chunks(torch.empty(b, 1, hw, 3 * heads * 32, dtype=torch.bfloat16), heads)
+    assert 1 <= bf16 <= hw and bf16 == min(hw, -(-4 * 132 // (b * heads)))
+    fp32 = A._headpacked_chunks(torch.empty(b, 1, hw, 3 * heads * 32), heads)
+    assert -(-hw // fp32) <= 16 and fp32 == -(-hw // max(1, min(16, hw // 64)))
+
+
 # (hw, batch, heads, F, pack, SMs): the serving shapes on 132 SMs, uneven
 # splits, a large P at F = 64 (bias slots capped by shared memory), odd sizes
 @pytest.mark.parametrize("hw,batch,heads,f,pack,sms", [
     (1024, 1, 8, 40, 4, 132), (256, 1, 8, 40, 4, 132), (64, 1, 8, 40, 4, 132),
     (16, 1, 8, 40, 4, 132), (1024, 1, 8, 40, 4, 12), (1024, 1, 8, 7, 32, 132),
-    (4096, 1, 1, 64, 4096, 132), (6, 2, 8, 48, 2, 132), (1000, 2, 3, 33, 8, 132)])
+    (4096, 1, 1, 64, 4096, 132), (6, 2, 8, 48, 2, 132), (1000, 2, 3, 33, 8, 132),
+    # a tp rank's 4 and 2 heads at the serving shapes
+    *[(hw, 1, h, 40, 4, 132) for hw in (1024, 256, 64, 16) for h in (4, 2)]])
 def test_packed_chunks_cover_every_pixel_once(hw, batch, heads, f, pack, sms):
     """`_packed_chunks` against the kernel's split: block `chunk` owns pixels
     `[chunk * ppb, min((chunk + 1) * ppb, hw))`, `ppb = ceil(hw / chunks)`, and

@@ -69,15 +69,15 @@ def free_ports(n: int) -> list:
             s.close()
 
 
-def spawn_ranks(cases: dict, directory: str, ports: int = 1) -> list:
-    """Run `cases` on two rank processes; their results, rank 0 first."""
+def spawn_ranks(cases: dict, directory: str, ports: int = 1, world: int = 2) -> list:
+    """Run `cases` on `world` rank processes; their results, rank 0 first."""
     path = os.path.join(directory, "cases.pt")
-    torch.save({"ports": free_ports(ports), "cases": cases}, path)
+    torch.save({"ports": free_ports(ports), "cases": cases, "world": world}, path)
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR")}
     env.update(OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
     procs = [subprocess.Popen([sys.executable, WORKER, path, str(r)], cwd=directory, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in (0, 1)]
+             for r in range(world)]
     outs = []
     try:
         for p in procs:
@@ -89,7 +89,7 @@ def spawn_ranks(cases: dict, directory: str, ports: int = 1) -> list:
                 p.communicate()
     for r, (p, (_, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-6000:]}"
-    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False) for r in range(world)]
 
 
 def assert_close(got, want, rel, what=""):
@@ -122,14 +122,16 @@ def test_serving_mesh_errors_and_one_process():
     assert serving_mesh("") is None
     with pytest.raises(ValueError, match="dp=2 needs 2 processes"):
         serving_mesh("dp=2", device="cpu")
-    for spec, axis in (("dp=1,tp=2", "tp"), ("sp=2", "sp"), ("dp=2,tp=2", "tp")):
-        with pytest.raises(NotImplementedError, match=f"the {axis} axis is not ported yet"):
+    with pytest.raises(NotImplementedError, match="the sp axis is not ported yet"):
+        serving_mesh("sp=2", device="cpu")
+    for spec, n in (("dp=1,tp=2", 2), ("dp=2,tp=2", 4)):  # tp is ported: the processes are missing
+        with pytest.raises(ValueError, match=f"needs {n} processes"):
             serving_mesh(spec, device="cpu")
     mesh = serving_mesh("dp=1", device="cpu")
     assert (mesh.size, mesh.rank, mesh.group, mesh.device) == (1, 0, None, torch.device("cpu"))
     assert mesh.shape == {"data": 1} and mesh.axis_names == ("data",)
-    with pytest.raises(NotImplementedError, match="tp and sp slices"):
-        M.make_mesh((1, 1), ("data", "model"), device="cpu")
+    with pytest.raises(NotImplementedError, match="the 'space' axis is not ported yet"):
+        M.make_mesh((1, 1), ("data", "space"), device="cpu")
     with pytest.raises(ValueError, match="needs 2 processes"):
         M.make_mesh(2, device="cpu")
 

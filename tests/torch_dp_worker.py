@@ -1,14 +1,15 @@
-"""The rank side of the port's two-process tests (`test_torch_parallel.py`,
-`test_torch_dp_train.py`).
+"""The rank side of the port's multi-process tests (`test_torch_parallel.py`,
+`test_torch_dp_train.py`, `test_torch_tp.py`, `test_torch_tp_mesh.py`).
 
     python tests/torch_dp_worker.py <cases.pt> <rank>
 
 `cases.pt` (written by the test with `torch.save`) holds `ports` (free
 localhost ports: the first for the cases' process group, the rest for the
-CLI runs, which join their own) and `cases`, {name: inputs}. This rank
-joins a gloo group of `world` processes on 127.0.0.1, runs every case in
-the order given, and writes {name: result} to `<dir>/rank<r>.pt`. It
-imports the port only: no JAX, no test module.
+CLI runs, which join their own), `world` (the number of processes, 2 if
+absent) and `cases`, {name: inputs}. This rank joins a gloo group of
+`world` processes on 127.0.0.1, runs every case in the order given, and
+writes {name: result} to `<dir>/rank<r>.pt`. It imports the port only: no
+JAX, no test module.
 """
 
 from __future__ import annotations
@@ -177,12 +178,42 @@ def case_lfae_steps(inp, rank):
     return out
 
 
+def _run_cli(module, argv, port, cfg, rank, world):
+    """A CLI in this process through its `setup` and `process_group`, as
+    `main` does, joined to its own group of `world` processes."""
+    from cvpr23_lfdm_torch.scripts import _common
+
+    args = module.parser().parse_args([*argv, "--coordinator", f"127.0.0.1:{port}",
+                                       "--num-processes", str(world), "--process-id", str(rank)])
+    _common.setup(args, multi_device=True, tp=module.__name__.endswith(("demo", "test_dm")))
+    with _common.process_group(args):
+        return module.run(cfg, args)
+
+
+def case_tp_cli(inp, rank, ports, world):
+    """`demo` (with `inp["demo"]`) or `test_dm` (with `inp["test_dm"]`) on a
+    mesh with a `model` axis; the demo's outputs and GIFs, `test_dm`'s
+    result."""
+    from cvpr23_lfdm_torch.scripts import demo, test_dm
+
+    out = {}
+    if "demo" in inp:
+        demo.BENCH_CKPT = os.path.join(inp["dir"], "none")  # seeded weights
+        argv = [*inp["demo"], "--log-dir", os.path.join(inp["dir"], f"rank{rank}")]
+        res = _run_cli(demo, argv, ports[0], inp["cfg"], rank, world)
+        out["demo"] = {"gifs": res["gifs"], "outputs": res["outputs"]}
+    if "test_dm" in inp:
+        argv = [*inp["test_dm"], "--log-dir", os.path.join(inp["dir"], f"rank{rank}")]
+        out["test_dm"] = _run_cli(test_dm, argv, ports[1], inp["cfg"], rank, world)
+    return out
+
+
 def case_cli(inp, rank, ports):
     """The CLIs as two processes (each run joins its own group): `train_dm`
     (`train` argv), then `--resume` (`resume` argv), then `demo --mesh
     dp=2`, each through its `setup` and `process_group` as `main` does, at
     the given tiny config. Records which rank wrote checkpoint files."""
-    from cvpr23_lfdm_torch.scripts import _common, demo, train_dm
+    from cvpr23_lfdm_torch.scripts import demo, train_dm
     from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager
 
     written = []
@@ -195,11 +226,7 @@ def case_cli(inp, rank, ports):
     CheckpointManager._write_state = recording
 
     def run(module, argv, port, cfg):
-        args = module.parser().parse_args([*argv, "--coordinator", f"127.0.0.1:{port}",
-                                           "--num-processes", "2", "--process-id", str(rank)])
-        _common.setup(args, multi_device=True)
-        with _common.process_group(args):
-            return module.run(cfg, args)
+        return _run_cli(module, argv, port, cfg, rank, 2)
 
     out = {}
     for name, port in (("train", ports[0]), ("resume", ports[1])):
@@ -214,18 +241,126 @@ def case_cli(inp, rank, ports):
     return out
 
 
+def _tp_mesh(inp):
+    return M.make_mesh(tuple(inp["mesh"]), ("data", "model"), device="cpu")
+
+
+def case_tp_meshes(inp, rank):
+    """(data index, model index, axis sizes) of this rank on a 2 x 2 mesh
+    in both axis orders; a model-group sum and a data-group sum of the
+    rank number."""
+    out = {}
+    for names in (("data", "model"), ("model", "data")):
+        mesh = M.make_mesh((2, 2), names, device="cpu")
+        x = torch.tensor([float(rank)])
+        out[names] = (mesh.rank, mesh.model_rank, mesh.shape, float(M.reduce_from_model(x, mesh)),
+                      float(M.all_reduce_sum(x, mesh.group)))
+    return out
+
+
+def case_tp_forms(inp, rank):
+    """A UNet forward in each form (and `pallas3` with the fused norm) on a
+    `model` axis of 2, from the same one-process weights; for `xla` the
+    gathered gradients of a weighted sum of the output as well."""
+    from cvpr23_lfdm_torch.models.unet3d import Unet3D, shard_unet, tp_parameters
+
+    mesh = _tp_mesh(inp)
+    out = {}
+    for impl, fused_norm in inp["forms"]:
+        net = Unet3D(**inp["kwargs"], temporal_attn_impl=impl, fused_norm=fused_norm)
+        net.load_state_dict(inp["state"])
+        shard_unet(net, mesh)
+        train = impl == "xla"
+        with torch.set_grad_enabled(train):
+            y = net(*inp["args"], fea=inp["fea"])
+        res = {"out": y.detach()}
+        if train:
+            (y * inp["cot"]).sum().backward()
+            M.sum_model_gradients(tp_parameters(net)[1], mesh)
+            res["grads"] = M.gather_variables(_named_grads(net), mesh, net.tp_shapes)
+        out[f"{impl}{'+norm' if fused_norm else ''}"] = res
+    return out
+
+
+def case_tp_serving(inp, rank):
+    """`sample_video_sharded` on a `data` x `model` mesh, the UNet sharded by
+    it; this rank's shards of the entries named in `inspect`, and whether
+    `gather_variables` gives back the one-process UNet bit for bit."""
+    from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded
+
+    cfg = inp["cfg"]
+    mesh = _tp_mesh(inp)
+    model = FlowDiffusion(cfg.lfae, cfg.diffusion, device="cpu")
+    model.load_state_dict(inp["model"])
+    full = _state(model.unet)
+    out = sample_video_sharded(model, mesh, inp["ref"], inp["cond"], 1.0,
+                               init_img=inp["init"], noise_seq=inp["noise"])
+    local = _state(model.unet)
+    gathered = M.gather_variables(local, mesh, model.unet.tp_shapes)
+    return {"out": out, "mesh": (mesh.size, mesh.rank, mesh.model_size, mesh.model_rank, mesh.shape),
+            "gather_exact": set(gathered) == set(full) and all(torch.equal(gathered[k], full[k]) for k in full),
+            "shards": {k: local[k] for k in inp["inspect"]},
+            "heads": [m.heads for m in model.unet.modules() if hasattr(m, "heads")]}
+
+
+def case_tp_dm_step(inp, rank):
+    """One `DMTrainer` step on a `data` x `model` mesh from the global
+    batch's injected draws: metrics, the gathered gradients and state,
+    `states_agree` over both axes, then the state through a checkpoint
+    (rank 0 writes the one-process format) into a new tp trainer."""
+    from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion
+    from cvpr23_lfdm_torch.models.unet3d import tp_parameters
+    from cvpr23_lfdm_torch.train.dm_trainer import DMTrainer
+    from cvpr23_lfdm_torch.utils.checkpoint import CheckpointManager
+
+    cfg = inp["cfg"]
+    mesh = _tp_mesh(inp)
+
+    def trainer():
+        model = FlowDiffusion(cfg.lfae, cfg.diffusion, device="cpu", training=True)
+        model.load_state_dict(inp["model"])
+        return DMTrainer(cfg, inp["steps_per_epoch"], model=model, mesh=mesh)
+
+    tr = trainer()
+    state = tr.init_state()
+    batch = inp["batch"]
+    local = M.shard_batch(batch, mesh, batch["cond"].shape[0])
+    t, noise, null = inp["draws"]
+    state, m = tr.train_step(state, None, local, t=t, noise=noise, null_mask=null)
+    unet = tr.model.unet
+    _, partial, whole = tp_parameters(unet)
+    saved = tr.state_dict(state)
+    ckpt = CheckpointManager(inp["ckpt_dir"])
+    ckpt.save(saved, step=state.step)
+    back = trainer()
+    restored_step = back.load_state_dict(ckpt.restore("latest", map_location="cpu")).step
+    again = back.state_dict(state)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": M.gather_variables(_named_grads(unet), mesh, unet.tp_shapes),
+            "unet": saved["unet"], "moments": {k: s["exp_avg"] for k, s in saved["optimizer"]["state"].items()},
+            "agree_data": M.states_agree(unet, mesh) and M.states_agree(tr.optimizer, mesh),
+            "agree_model": M.states_agree(partial + whole, mesh, axis="model"),
+            "param_bytes": sum(p.numel() * p.element_size() for p in unet.parameters()),
+            "restored": restored_step == state.step
+            and all(torch.equal(again["unet"][k], saved["unet"][k]) for k in saved["unet"])
+            and all(torch.equal(again["optimizer"]["state"][i][key], s[key])
+                    for i, s in saved["optimizer"]["state"].items() for key in ("exp_avg", "exp_avg_sq"))}
+
+
 CASES = {"basics": case_basics, "mean_grad": case_mean_grad, "replicate": case_replicate,
          "syncbn": case_syncbn, "serving": case_serving, "dm_steps": case_dm_steps,
-         "lfae_steps": case_lfae_steps}
+         "lfae_steps": case_lfae_steps, "tp_meshes": case_tp_meshes, "tp_forms": case_tp_forms, "tp_serving": case_tp_serving,
+         "tp_dm_step": case_tp_dm_step}
 
 
 def main(path: str, rank: int) -> None:
     torch.set_num_threads(1)
     spec = torch.load(path, weights_only=False)  # written by the test that spawned this process
-    ports, cases = spec["ports"], dict(spec["cases"])
-    cli = cases.pop("cli", None)
+    ports, cases, world = spec["ports"], dict(spec["cases"]), spec.get("world", 2)
+    cli, tp_cli = cases.pop("cli", None), cases.pop("tp_cli", None)
     results = {}
-    D.init_distributed(f"127.0.0.1:{ports[0]}", 2, rank, device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    D.init_distributed(f"127.0.0.1:{ports[0]}", world, rank, device="cpu", timeout_s=GROUP_TIMEOUT_S)
     try:
         for name, inp in cases.items():
             results[name] = CASES[inp.get("case", name)](inp, rank)
@@ -233,6 +368,8 @@ def main(path: str, rank: int) -> None:
         D.shutdown_distributed()
     if cli is not None:
         results["cli"] = case_cli(cli, rank, ports[1:])
+    if tp_cli is not None:
+        results["tp_cli"] = case_tp_cli(tp_cli, rank, ports[1:], world)
     torch.save(results, os.path.join(os.path.dirname(path), f"rank{rank}.pt"))
 
 
