@@ -270,6 +270,25 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               `TRAIN_PARITY_TOL`; 10 + 10 launches of rows 4 / 5 per rank;
               `states_agree` within the model group), and each rank's UNet
               parameter bytes (gated at `TP_PARAM_SHARE` of one process's).
+30. sp       — spatial partitioning over the `space` axis. First, in this
+              process, row 3 on a band of output rows at each band shape
+              that sp=2 gives the MUG decode (sources 32²x256, 64²x128,
+              128²x67, `Ho` = 16, 32, 64 of their rows, B=1, F=40), bf16
+              and fp32: each band bit-equal to its plain version and to
+              those rows of the whole-height call, one device launch per
+              call (gated); bf16 timed with its device time alone and
+              `F.grid_sample` on the band's grid (the `kernels` line's
+              `warp_video_band` entry). Then two rank subprocesses sharing
+              cuda:0 over gloo, a `data` x `space` mesh of 1 x 2, the MUG
+              config at full width, the LFAE's encoder and decoder of each
+              rank on its 64 rows: the video at B=1 from injected gaussians
+              in fp32 (TF32 off) and in bf16, gated equal on both ranks,
+              finite, 100 / 80 / 3 launches of rows 1 / 2 / 3 per rank (all
+              three warps on a band), the fp32 video within `PATH_TOL` of
+              one process, the bf16 video no further from the one-process
+              fp32 video than `SP_BF16_OF_WITNESS` times the one-process
+              bf16 video is; recorded: each rank's seconds per video and
+              the decode's peak allocated memory against one process's.
 
 Every phase line carries `clock_s`, the seconds since the script started.
 Then one `kernels` line (per kernel: launches on its main path, and its
@@ -657,7 +676,7 @@ def plain_ops():
 
 NEW_KERNELS = ("packed_temporal_attention", "groupnorm_film_silu", "warp_onehot", "warp_gather",
                "fused_temporal_layer_ablate", "fused_temporal_layer_partial",
-               "fused_spatial_linear_layer_partial")
+               "fused_spatial_linear_layer_partial", "warp_video_band")
 
 
 def counters() -> dict:
@@ -2989,9 +3008,9 @@ def dp_ranks(mode: str, world: int) -> list:
 
 
 def dp_worker(mode: str, rank: int, world: int, port: int, out: str) -> int:
-    """One rank of the `dp` or `tp` phase: joins the group through
+    """One rank of the `dp`, `tp` or `sp` phase: joins the group through
     `init_distributed` (NCCL for `nccl`, else gloo, on cuda:0), runs
-    `dp_nccl`, `dp_gloo` or `tp_gloo` and writes its result to
+    `dp_nccl`, `dp_gloo`, `tp_gloo` or `sp_gloo` and writes its result to
     `<out>/rank<r>.json`."""
     import torch
 
@@ -3003,7 +3022,7 @@ def dp_worker(mode: str, rank: int, world: int, port: int, out: str) -> int:
     D.init_distributed(f"127.0.0.1:{port}", world, rank, backend="nccl" if mode == "nccl" else "gloo",
                        device="cuda:0", timeout_s=DP_GROUP_TIMEOUT_S)
     try:
-        result = {"nccl": dp_nccl, "gloo": dp_gloo, "tp": tp_gloo}[mode](rank)
+        result = {"nccl": dp_nccl, "gloo": dp_gloo, "tp": tp_gloo, "sp": sp_gloo}[mode](rank)
     finally:
         D.shutdown_distributed()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
@@ -3530,6 +3549,177 @@ def run_tp(failures: list) -> tuple[dict, dict]:
     return totals, launches
 
 
+# ---------------------------------------------------------------- spatial partitioning (phase 30)
+
+SP = 2                  # the space axis of the phase: two gloo ranks on cuda:0
+SP_SEED = 30            # the injected gaussians of the phase's videos
+# bf16 under sp: its distance from the one-process fp32 video over the
+# one-process bf16 video's distance from it, at most (the tp phase's rule)
+SP_BF16_OF_WITNESS = 2.0
+SP_VIDEO_LAUNCHES = {"fused_temporal_layer": TEMPORAL_PER_EVAL * DDIM_STEPS,
+                     "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3,
+                     "warp_video_band": 3}
+
+
+def check_sp_kernels(failures: list) -> dict:
+    """Row 3 on a band of output rows at the shapes an sp=2 decode gives it:
+    each rank's band of the three decode scales' grids (B=1, F=40) against
+    the plain version and against those rows of the whole-height call, bit
+    for bit, one device launch per call; bf16 timed, per-kernel totals over
+    the three calls of one rank's video."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvpr23_lfdm_torch.ops import warp as W
+    from cvpr23_lfdm_torch.scripts.bench_norm import device_reading, one_launch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    totals = _totals(("warp_video_band",))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        timed = dtype == torch.bfloat16
+        esz = 2 if timed else 4
+        for (h, c), per_video in WARP_SHAPES.items():
+            src = torch.randn(1, h, h, c, generator=gen, device=dev).to(dtype)
+            lin = torch.linspace(-1, 1, h, device=dev)
+            ident = torch.stack(torch.meshgrid(lin, lin, indexing="xy"), -1)
+            grid = (ident[None, None] + 0.3 * torch.randn(1, F_FRAMES, h, h, 2, generator=gen,
+                                                          device=dev)).contiguous()
+            whole = W.warp_video(src, grid)
+            ho = h // SP
+            for r in range(SP):
+                band = grid[:, :, r * ho:(r + 1) * ho].contiguous()
+                call = lambda: W.warp_video(src, band)  # noqa: E731
+                out, ref = call(), W.warp_video_plain(src, band)
+                res = compare(out, ref, WARP_TOL[dname])
+                equal, rows = bool(torch.equal(out, ref)), bool(torch.equal(out, whole[:, :, r * ho:(r + 1) * ho]))
+                dev_ms, launches, other = device_reading(call, kernel="warp_blend_kernel")
+                res["ok"] = res["ok"] and equal and rows and one_launch(launches, other)
+                times = None
+                if timed and r == 0:
+                    src_nchw = src.permute(0, 3, 1, 2)
+                    g4 = band.reshape(1, F_FRAMES * ho, h, 2).to(dtype)
+                    gs = lambda: F.grid_sample(src_nchw, g4, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                               align_corners=False)
+                    # one launch per call: a profile late in the run that lost it reads None
+                    times = {"kernel_ms": median_ms(call),
+                             "plain_ms": median_ms(lambda: W.warp_video_plain(src, band), reps=5),
+                             "library_ms": median_ms(gs), "kernel_device_ms": dev_ms,
+                             "library_device_ms": device_ms(gs, launches=1)}
+                nbytes = src.numel() * esz + band.numel() * 4 + out.numel() * esz
+                flops = 8 * out.numel()
+                shape = [1, F_FRAMES, ho, h, c, f"rows {r * ho}-{(r + 1) * ho - 1}"]
+                _record(totals, failures, "warp_video_band", shape, dname, res, per_video if times else 0,
+                        times, nbytes, flops, FP32_FLOPS,
+                        bit_equal_to_plain=equal, bit_equal_to_whole_rows=rows,
+                        device_launches_per_call=launches, other_device_launches_per_call=other)
+            del src, grid, whole
+    torch.cuda.empty_cache()
+    return totals
+
+
+def sp_gloo(rank: int) -> dict:
+    """One rank of the `sp` phase: a `data` x `space` mesh of 1 x 2 over gloo
+    on cuda:0, the MUG config at full width, the video at B=1 from the
+    injected gaussians of `SP_SEED` in bf16 and in fp32 (TF32 off):
+    finite, the launches of rows 1-3, seconds, the decode's peak allocated
+    memory (a second decode of the sampled flow, band mode), and whether
+    both ranks' videos are equal (gathered over the group). Rank 0 then
+    runs the same videos and decode in one process while rank 1 waits:
+    the distances of the sp videos from them, and the one-process decode's
+    peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from cvpr23_lfdm_torch.parallel import distributed as D
+    from cvpr23_lfdm_torch.parallel.mesh import _all_gather, make_mesh
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded
+
+    mesh = make_mesh((1, SP), ("data", "space"))
+    res = {"rank": rank, "mesh": [mesh.size, mesh.rank, mesh.space_size, mesh.space_rank, str(mesh.device)]}
+    host = lambda d: {k: v.detach().float().cpu() for k, v in d.items()}  # noqa: E731
+    gap = lambda a, b: {k: float((a[k] - b[k]).abs().max()) for k in b}  # noqa: E731
+
+    def decode_peak_mb(model, ref, out):
+        """Peak allocated memory above the start of one decode of `out`'s flow."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.decode_flow_video(ref, out["vid_grid"], out["vid_conf"])
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    videos = {}  # rank 0: (dtype, "sp" | "one") -> video on the host
+    for dname in ("bfloat16", "float32"):
+        cfg, model, cond, ref, _ = serving_model(dname)
+        init, noise = injected_noise(cfg, SP_SEED)
+        def call():
+            return sample_video_sharded(model, mesh, ref, cond, 1.0, init_img=init, noise_seq=noise)
+
+        call()  # warm-up: cuDNN autotuning, allocator, the band-mode generator
+        reset_counters()
+        out, res[f"video_{dname}_s"] = _synced(call)
+        res[f"video_{dname}_launches"] = counters()
+        res[f"video_{dname}_finite"] = all(torch_isfinite(v) for v in out.values())
+        res[f"video_{dname}_ranks_equal"] = all(
+            all(torch.equal(p, v) for p in _all_gather(v, dist.group.WORLD, SP)) for v in out.values())
+        res[f"decode_{dname}_peak_mb"] = decode_peak_mb(model, ref, out)
+        videos[dname, "sp"] = host(out)
+        del model, out
+        torch.cuda.empty_cache()
+        if rank == 0:
+            _, one, _, _, _ = serving_model(dname)
+            one.sample_video(ref, cond, 1.0, init_img=init, noise_seq=noise)  # warm-up
+            out, res[f"video_{dname}_one_s"] = _synced(
+                lambda: one.sample_video(ref, cond, 1.0, init_img=init, noise_seq=noise))
+            res[f"decode_{dname}_one_peak_mb"] = decode_peak_mb(one, ref, out)
+            videos[dname, "one"] = host(out)
+            res[f"video_{dname}_max_abs"] = gap(videos[dname, "sp"], videos[dname, "one"])
+            del one, out
+            torch.cuda.empty_cache()
+        D.barrier()
+    if rank == 0:  # the bf16 videos' distances from the fp32 one-process video
+        for who in ("sp", "one"):
+            res[f"video_bf16_{who}_vs_fp32_one"] = gap(videos["bfloat16", who], videos["float32", "one"])
+    return res
+
+
+def run_sp(failures: list) -> tuple[dict, dict]:
+    """Phase 30: row 3's band mode here, then `sp_gloo` on two rank
+    subprocesses. Returns the kernel totals and rank 0's launches of its
+    bf16 video."""
+    t0 = time.perf_counter()
+    totals = check_sp_kernels(failures)
+    ranks = dp_ranks("sp", SP)
+    line = {"phase": "sp", "what": f"gloo, {SP} ranks on cuda:0, a 1 x {SP} data x space mesh", "ranks": ranks,
+            "tol": {"video_fp32": PATH_TOL, "bf16_of_witness": SP_BF16_OF_WITNESS}}
+    launches = {}
+    if all("exit" not in r for r in ranks):
+        r0 = ranks[0]
+        dtypes = ("bfloat16", "float32")
+        checks = {
+            "meshes_ok": [r["mesh"][:4] for r in ranks] == [[1, 0, SP, s] for s in range(SP)],
+            "video_finite": all(r[f"video_{d}_finite"] for r in ranks for d in dtypes),
+            "video_ranks_equal": all(r[f"video_{d}_ranks_equal"] for r in ranks for d in dtypes),
+            "video_launches_ok": all(r[f"video_{d}_launches"][k] == v for r in ranks for d in dtypes
+                                     for k, v in SP_VIDEO_LAUNCHES.items()),
+            "video_fp32_ok": all(v <= PATH_TOL for v in r0["video_float32_max_abs"].values()),
+            "video_bf16_ok": all(v <= SP_BF16_OF_WITNESS * r0["video_bf16_one_vs_fp32_one"][k]
+                                 for k, v in r0["video_bf16_sp_vs_fp32_one"].items()),
+        }
+        line.update(checks, ok=all(checks.values()),
+                    decode_peak_mb={d: {"sp": [r[f"decode_{d}_peak_mb"] for r in ranks],
+                                        "one": r0[f"decode_{d}_one_peak_mb"]} for d in dtypes},
+                    video_s={d: {"sp": [r[f"video_{d}_s"] for r in ranks], "one": r0[f"video_{d}_one_s"]}
+                             for d in dtypes})
+        launches = r0["video_bfloat16_launches"]
+    emit({**line, "phase_s": time.perf_counter() - t0, "gpu": gpu_line()})
+    if not line.get("ok"):
+        failures.append("sp gloo 2 ranks")
+    return totals, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3603,6 +3793,8 @@ def main() -> int:
     run_dp(failures)
     tp_totals, tp_launches = run_tp(failures)
     totals.update(tp_totals)
+    sp_totals, sp_launches = run_sp(failures)
+    totals.update(sp_totals)
 
     csrc = "cvpr23_lfdm_torch/csrc/"
     jops = "cvpr23_lfdm_tpu/ops/"
@@ -3631,8 +3823,11 @@ def main() -> int:
                                          tp_launches, "one rank's tp=2 serving video (pallas3, head-shard mode, 4 heads)"),
         "fused_spatial_linear_layer_partial": ("fused_spatial_linear_layer.cu", jops + "attention_pallas.py:745",
                                                tp_launches, "one rank's tp=2 serving video (pallas3, head-shard mode, 4 heads)"),
+        "warp_video_band": ("warp_blend.cu", jops + "warp_pallas.py:440", sp_launches,
+                            "one rank's sp=2 serving video (band mode: 16, 32, 64 output rows of the 32², "
+                            "64², 128² sources)"),
     }
-    fp32_bound = ("warp_video", "groupnorm_film_silu", "warp_onehot", "warp_gather")
+    fp32_bound = ("warp_video", "groupnorm_film_silu", "warp_onehot", "warp_gather", "warp_video_band")
     kernels = []
     for name, (src, replaces, counted, per) in table.items():
         t = totals[name]

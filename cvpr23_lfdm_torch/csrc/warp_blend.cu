@@ -14,7 +14,9 @@
 //     no size cap. Plain version: ops/warp.py::warp_blend_plain.
 //   - the decode warp of one source per video at F per-frame grids (frames =
 //     F, blend none, fp32 or bf16 in and out: fp32 weights and sums, the sum
-//     rounded once to the source's dtype). Replaces warp_pallas.py::
+//     rounded once to the source's dtype), over the whole frame or over a
+//     band of Ho of the source's Hs rows (a rank's band of a `space` mesh:
+//     its grid still addresses the whole source). Replaces warp_pallas.py::
 //     warp_video_tiled (_tiled_kernel, window geometry _tiled_geometry) and
 //     its fit-checked dispatcher warp_video: no windows, tiles or fit check,
 //     exact for every flow. Plain version: ops/warp.py::warp_video_plain.
@@ -25,8 +27,10 @@
 // reads of an output come from L1/L2, since neighbouring outputs share
 // corners.
 //
-// Design: a block of 256 threads owns a tile of consecutive output pixels of
-// one image (32 to 256 of them, about 32 KB of output: tile_pixels).
+// Design: the source image is [Hs, W, C] and an output image [Ho, W, C] (Ho
+// == Hs but in the decode warp's band mode): the corners are found in the
+// source's extent and the tiles cut the output's pixels. A block of 256
+// threads owns a tile of consecutive output pixels of one image (32 to 256 of them, about 32 KB of output: tile_pixels).
 // First one thread per pixel works out the pixel's corners (bilinear.cuh:
 // 32-bit offsets inside the source image, weights, zero for a corner outside
 // it) into shared memory. Then the block streams the tile's contiguous
@@ -100,10 +104,11 @@ template <int BLEND, typename V>
 __global__ void __launch_bounds__(kThreads)
 warp_blend_kernel(const V* __restrict__ image, const float* __restrict__ grid,
                   const float* __restrict__ occ, const V* __restrict__ prev, V* __restrict__ out,
-                  long long images, int frames, int H, int W, int C, int CV, int tile) {
+                  long long images, int frames, int Hs, int Ho, int W, int C, int CV, int tile) {
   __shared__ Corners corners[kMaxTile];
   __shared__ float socc[kMaxTile];
-  const int hw = H * W;
+  const int hw = Ho * W;  // output pixels of an image
+  const long long src_image = (long long)Hs * W * CV;  // V units of a source image
   const int p0 = blockIdx.x * tile;  // the tile's first pixel in its image
   const int np = min(tile, hw - p0);
   const int n = np * CV;
@@ -115,11 +120,11 @@ warp_blend_kernel(const V* __restrict__ image, const float* __restrict__ grid,
     __syncthreads();                      // the previous image's corners are read
     for (int t = threadIdx.x; t < np; t += kThreads) {
       const long long p = first + t;
-      corners[t] = bilinear_corners(grid[2 * p], grid[2 * p + 1], H, W, C);
+      corners[t] = bilinear_corners(grid[2 * p], grid[2 * p + 1], Hs, W, C);
       if (BLEND != 0) socc[t] = occ[p];
     }
     __syncthreads();
-    const V* img = image + (i / frames) * hw * (long long)CV;
+    const V* img = image + (i / frames) * src_image;
     V* dst = out + first * CV;
     const V* pv = prev + first * CV;
     int pix = pix_start, c = c_start;
@@ -139,10 +144,10 @@ warp_blend_kernel(const V* __restrict__ image, const float* __restrict__ grid,
 
 template <typename V>
 void launch_typed(const void* image, const void* grid, const void* occ, const void* prev,
-                  void* out, long long images, int frames, int H, int W, int C, int blend,
+                  void* out, long long images, int frames, int Hs, int Ho, int W, int C, int blend,
                   cudaStream_t st) {
   const int CV = C / Elems<V>::value, tile = tile_pixels(C, sizeof(V) / Elems<V>::value);
-  const dim3 blocks((unsigned)((H * W + tile - 1) / tile),
+  const dim3 blocks((unsigned)((Ho * W + tile - 1) / tile),
                     (unsigned)(images < 65535 ? images : 65535));
   auto im = static_cast<const V*>(image);
   auto g = static_cast<const float*>(grid), oc = static_cast<const float*>(occ);
@@ -150,18 +155,18 @@ void launch_typed(const void* image, const void* grid, const void* occ, const vo
   auto o = static_cast<V*>(out);
   if constexpr (std::is_same<V, float>::value || std::is_same<V, float4>::value) {
     if (blend == 1) {
-      warp_blend_kernel<1, V><<<blocks, kThreads, 0, st>>>(im, g, oc, pv, o, images, frames, H, W,
-                                                           C, CV, tile);
+      warp_blend_kernel<1, V><<<blocks, kThreads, 0, st>>>(im, g, oc, pv, o, images, frames, Hs, Ho,
+                                                           W, C, CV, tile);
       return;
     }
     if (blend == 2) {
-      warp_blend_kernel<2, V><<<blocks, kThreads, 0, st>>>(im, g, oc, pv, o, images, frames, H, W,
-                                                           C, CV, tile);
+      warp_blend_kernel<2, V><<<blocks, kThreads, 0, st>>>(im, g, oc, pv, o, images, frames, Hs, Ho,
+                                                           W, C, CV, tile);
       return;
     }
   }
-  warp_blend_kernel<0, V><<<blocks, kThreads, 0, st>>>(im, g, oc, pv, o, images, frames, H, W, C,
-                                                       CV, tile);
+  warp_blend_kernel<0, V><<<blocks, kThreads, 0, st>>>(im, g, oc, pv, o, images, frames, Hs, Ho, W,
+                                                       C, CV, tile);
 }
 
 bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -182,30 +187,32 @@ extern "C" int launch_warp_blend_f32(const void* image, const void* grid, const 
       (blend == 2 && prev == nullptr))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const int h = (int)H, w = (int)W, c = (int)C;  // one image: output rows = source rows
   if (C % 4 == 0 && aligned16(image) && aligned16(prev) && aligned16(out))
-    launch_typed<float4>(image, grid, occ, prev, out, B, 1, (int)H, (int)W, (int)C, blend, st);
+    launch_typed<float4>(image, grid, occ, prev, out, B, 1, h, h, w, c, blend, st);
   else
-    launch_typed<float>(image, grid, occ, prev, out, B, 1, (int)H, (int)W, (int)C, blend, st);
+    launch_typed<float>(image, grid, occ, prev, out, B, 1, h, h, w, c, blend, st);
   return cudaGetLastError();
 }
 
-// The decode warp: src [B, H, W, C] at grid [B, F, H, W, 2] -> out [B, F, H, W, C]
-// in the source's dtype (bf16 != 0: bf16, else fp32).
+// The decode warp: src [B, Hs, W, C] at grid [B, F, Ho, W, 2] -> out [B, F, Ho, W, C]
+// in the source's dtype (bf16 != 0: bf16, else fp32); Ho <= Hs, and the grid
+// addresses the whole source.
 extern "C" int launch_warp_video(int bf16, const void* src, const void* grid, void* out,
-                                 long long B, long long F, long long H, long long W, long long C,
-                                 void* stream) {
+                                 long long B, long long F, long long Hs, long long Ho, long long W,
+                                 long long C, void* stream) {
   using namespace lfdm;
-  if (!sizes_ok(B * F, H, W, C)) return cudaErrorInvalidValue;
+  if (!sizes_ok(B * F, Hs, W, C) || Ho < 1 || Ho > Hs) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const bool aligned = aligned16(src) && aligned16(out);
-  const int h = (int)H, w = (int)W, c = (int)C;
+  const int hs = (int)Hs, ho = (int)Ho, w = (int)W, c = (int)C;
   if (bf16 && C % 8 == 0 && aligned)
-    launch_typed<Bf16x8>(src, grid, nullptr, nullptr, out, B * F, (int)F, h, w, c, 0, st);
+    launch_typed<Bf16x8>(src, grid, nullptr, nullptr, out, B * F, (int)F, hs, ho, w, c, 0, st);
   else if (bf16)
-    launch_typed<__nv_bfloat16>(src, grid, nullptr, nullptr, out, B * F, (int)F, h, w, c, 0, st);
+    launch_typed<__nv_bfloat16>(src, grid, nullptr, nullptr, out, B * F, (int)F, hs, ho, w, c, 0, st);
   else if (C % 4 == 0 && aligned)
-    launch_typed<float4>(src, grid, nullptr, nullptr, out, B * F, (int)F, h, w, c, 0, st);
+    launch_typed<float4>(src, grid, nullptr, nullptr, out, B * F, (int)F, hs, ho, w, c, 0, st);
   else
-    launch_typed<float>(src, grid, nullptr, nullptr, out, B * F, (int)F, h, w, c, 0, st);
+    launch_typed<float>(src, grid, nullptr, nullptr, out, B * F, (int)F, hs, ho, w, c, 0, st);
   return cudaGetLastError();
 }

@@ -23,6 +23,7 @@ from cvpr23_lfdm_torch.diffusion.gaussian_diffusion import GaussianDiffusion
 from cvpr23_lfdm_torch.models.flow_autoenc import build_generator, build_lfae_modules
 from cvpr23_lfdm_torch.models.unet3d import Unet3D, resolve_attn_impl
 from cvpr23_lfdm_torch.ops.grid import identity_flow_volume
+from cvpr23_lfdm_torch.parallel.mesh import broadcast_space
 from cvpr23_lfdm_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -231,6 +232,12 @@ class FlowDiffusion(nn.Module):
             `[steps, B, F, h, w, 3]`; else drawn from `generator`.
 
         Returns `vid_grid`, `vid_conf`, `out_vid`, `warped_vid`.
+
+        With the generator in band mode (`models/generator.py::
+        shard_generator`), every rank of the space group samples the same
+        latent from the gathered feature, and the first rank's is
+        broadcast before the decode, so that each band decodes the same
+        flow.
         """
         fea = self.generator.compute_fea(sample_img)
         pred = self.diffusion.sample(
@@ -238,6 +245,7 @@ class FlowDiffusion(nn.Module):
             num_frames=self.cfg.num_frames, image_size=self.cfg.img_size,
             init_img=init_img, noise_seq=noise_seq, generator=generator,
         )
+        pred = broadcast_space(pred, self.generator.sp)
         vid_grid, vid_conf = self.decode_latent(pred)
         out_vid, warped_vid = self.decode_flow_video(sample_img, vid_grid, vid_conf)
         return {

@@ -32,7 +32,14 @@ class Conv2d(nn.Module):
     """2D conv on `[N, H, W, C]`; weight OIHW (a flax HWIO kernel transposed).
 
     The input is viewed as NCHW with channels-last strides, so cuDNN runs an
-    NHWC convolution and no copy is made on the card."""
+    NHWC convolution and no copy is made on the card.
+
+    Band mode (`space`, a mesh with a `space` axis; set by
+    `models/generator.py::shard_generator`): the input is this rank's band
+    of rows, which the forward extends by `k // 2` rows of each neighbour
+    (`parallel/mesh.py::halo_rows`, zeros past the image's edges) before
+    it convolves with padding `(0, k // 2)`; the output is the band's rows
+    of the whole convolution. The weights are the same."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int | None = None, bias: bool = True, dtype=None):
@@ -40,6 +47,7 @@ class Conv2d(nn.Module):
         self.stride = stride
         self.padding = k // 2 if padding is None else padding
         self.dtype = dtype
+        self.space = None
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         nn.init.normal_(self.weight, std=(cin * k * k) ** -0.5)
@@ -48,10 +56,15 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x)
+        x, padding = x.to(dt), self.padding
+        if self.space is not None:
+            from cvpr23_lfdm_torch.parallel.mesh import halo_rows
+
+            x, padding = halo_rows(x, padding, self.space), (0, padding)
         y = F.conv2d(
-            x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+            x.permute(0, 3, 1, 2), self.weight.to(dt),
             None if self.bias is None else self.bias.to(dt),
-            stride=self.stride, padding=self.padding,
+            stride=self.stride, padding=padding,
         )
         return y.permute(0, 2, 3, 1)
 

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 def kernel_counters() -> dict:
     """name -> (wrapper, counter attribute) of every kernel wrapper (the
-    `_partial` entries: the head-shard launches among the wrapper's)."""
+    `_partial` entries: the head-shard launches among the wrapper's; the
+    `_band` entry: the launches on a band of output rows)."""
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.ops import warp as W
@@ -17,6 +18,7 @@ def kernel_counters() -> dict:
             "fused_temporal_layer_partial": (A.fused_temporal_layer, "partial_launches"),
             "fused_spatial_linear_layer_partial": (A.fused_spatial_linear_layer, "partial_launches"),
             "warp_video": (W.warp_video, "launches"),
+            "warp_video_band": (W.warp_video, "band_launches"),
             "headpacked_attention_fwd": (A.headpacked_temporal_attention, "launches"),
             "headpacked_attention_bwd": (A.headpacked_temporal_attention, "backward_launches"),
             "packed_temporal_attention": (A.packed_temporal_attention, "launches"),

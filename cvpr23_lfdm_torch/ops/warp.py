@@ -136,8 +136,11 @@ def train_warp(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 
 def warp_video_plain(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
-    """`src [B, H, W, C]` sampled at `grid5 [B, F, H, W, 2]` -> `[B, F, H, W, C]`,
-    without repeating the source."""
+    """`src [B, Hs, W, C]` sampled at `grid5 [B, F, Ho, W, 2]` -> `[B, F, Ho, W, C]`,
+    without repeating the source. The grid's normalised coordinates address
+    the whole source, whatever its own height `Ho`: a band of output rows
+    (`Ho < Hs`, the decode of one band of a `space` mesh) is those rows of
+    the whole-height warp."""
     b, f, h, w, _ = grid5.shape
     out = grid_sample(src, grid5.reshape(b, f * h, w, 2))
     return out.reshape(b, f, h, w, src.shape[-1])
@@ -148,18 +151,22 @@ _PTR, _LL = ctypes.c_void_p, ctypes.c_longlong
 
 
 def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
-    """Warp of one source per video at per-frame grids, `[B, F, H, W, C]`.
-    CPU tensors take the plain version; CUDA tensors launch the warp core
-    of `csrc/warp_blend.cu` with a frame axis, which is forward-only (a
-    gradient goes through :func:`grid_sample`). One source image may hold
-    at most 2^31 - 1 elements."""
+    """Warp of one source per video `src [B, Hs, W, C]` at per-frame grids
+    `grid5 [B, F, Ho, W, 2]` -> `[B, F, Ho, W, C]`, `Ho <= Hs`: the whole
+    frames (`Ho == Hs`), or a band of output rows whose grid addresses the
+    whole source (:func:`warp_video_plain`). CPU tensors take the plain
+    version; CUDA tensors launch the warp core of `csrc/warp_blend.cu`
+    with a frame axis, which is forward-only (a gradient goes through
+    :func:`grid_sample`). One source image, and one output image, may hold
+    at most 2^31 - 1 elements. A call with `Ho < Hs` also counts in
+    `warp_video.band_launches`."""
     if src.device.type == "cpu":
         return warp_video_plain(src, grid5)
     if src.device.type != "cuda":
         raise RuntimeError(f"warp_video: unsupported device {src.device}")
-    b, f, h, w, two = grid5.shape
-    c = src.shape[-1]
-    if two != 2 or tuple(src.shape) != (b, h, w, c):
+    b, f, ho, w, two = grid5.shape
+    h, c = src.shape[1], src.shape[-1]
+    if two != 2 or src.ndim != 4 or tuple(src.shape) != (b, h, w, c) or not 1 <= ho <= h:
         raise ValueError(f"warp_video: shapes {tuple(src.shape)} {tuple(grid5.shape)}")
     if src.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"warp_video: source dtype {src.dtype}")
@@ -173,12 +180,13 @@ def warp_video(src: torch.Tensor, grid5: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"warp_video: one image holds {h * w * c} elements, more than "
                          f"the kernel's 32-bit offsets reach ({_MAX_IMAGE})")
     _build.require_no_grad("warp_video", src, grid5)
-    out = torch.empty((b, f, h, w, c), dtype=src.dtype, device=src.device)
-    fn = _build.bind("warp_blend", "launch_warp_video", [ctypes.c_int] + [_PTR] * 3 + [_LL] * 5 + [_PTR])
+    out = torch.empty((b, f, ho, w, c), dtype=src.dtype, device=src.device)
+    fn = _build.bind("warp_blend", "launch_warp_video", [ctypes.c_int] + [_PTR] * 3 + [_LL] * 6 + [_PTR])
     code = fn(int(src.dtype == torch.bfloat16), _build.ptr(src), _build.ptr(grid5), _build.ptr(out),
-              b, f, h, w, c, _build.stream(src.device))
+              b, f, h, ho, w, c, _build.stream(src.device))
     _build.check(_build.load("warp_blend"), "launch_warp_video", code)
     warp_video.launches += 1
+    warp_video.band_launches += ho < h
     return out
 
 
@@ -275,5 +283,6 @@ def warp_gather(image, grid, occlusion=None, previous=None, blend=None):
 
 
 warp_video.launches = 0
+warp_video.band_launches = 0
 warp_onehot.launches = 0
 warp_gather.launches = 0

@@ -1,5 +1,5 @@
-"""The `data` and `model` axes of a mesh over processes and their collectives
-(counterpart of `cvpr23_lfdm_tpu/parallel/mesh.py`).
+"""The `data`, `model` and `space` axes of a mesh over processes and their
+collectives (counterpart of `cvpr23_lfdm_tpu/parallel/mesh.py`).
 
 In the JAX package XLA's partitioner turns a batch sharded over the `data`
 axis into collectives; here each rank is one process holding its
@@ -20,7 +20,16 @@ The `model` axis (tensor parallelism of the UNet, the second section):
 `UNET_TP_RULES` and `tp_spec` as in the JAX package, `shard_variables` /
 `gather_variables` between the one-process state and a rank's shard, and
 the explicit collectives of the tensor-parallel form
-(`models/unet3d.py::shard_unet`). The `space` axis is not ported yet.
+(`models/unet3d.py::shard_unet`).
+
+The `space` axis (spatial partitioning of the LFAE's encoder and decoder,
+the third section): the image height cut into one contiguous band per
+rank (`local_band`), the neighbours' rows a convolution needs
+(`halo_rows`, zeros past the image's edges), the bands put back together
+(`gather_band`) and one rank's tensor sent to the others
+(`broadcast_space`); `models/generator.py::shard_generator` runs the
+generator on them. GSPMD places these halo exchanges itself in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -38,11 +47,14 @@ from cvpr23_lfdm_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A `data` mesh, or a `data` x `model` mesh. `size` ranks in `group`
-    (None for one rank) share this rank's model index and split the batch,
-    this rank at `rank` of them; `model_size` ranks in `model_group` (None
-    for one) share its data index and split the UNet's heads and channels,
-    this rank at `model_rank`. Its tensors are on `device`."""
+    """A mesh of `data`, `model` and `space` axes. `size` ranks in `group`
+    (None for one rank) share this rank's model and space indices and
+    split the batch, this rank at `rank` of them; `model_size` ranks in
+    `model_group` (None for one) share its data and space indices and
+    split the UNet's heads and channels, this rank at `model_rank`;
+    `space_size` ranks in `space_group` (None for one) share its data and
+    model indices and split the image height, this rank at `space_rank`.
+    Its tensors are on `device`."""
 
     size: int
     rank: int
@@ -52,11 +64,17 @@ class Mesh:
     model_size: int = 1
     model_rank: int = 0
     model_group: object = None
+    space_size: int = 1
+    space_rank: int = 0
+    space_group: object = None
 
     @property
     def shape(self) -> dict:
-        sizes = {"data": self.size, "model": self.model_size}
+        sizes = {"data": self.size, "model": self.model_size, "space": self.space_size}
         return {a: sizes[a] for a in self.axis_names}
+
+
+AXES = ("data", "model", "space")
 
 
 def _canonical(device) -> torch.device:
@@ -69,18 +87,16 @@ def _canonical(device) -> torch.device:
 def make_mesh(shape: int | tuple | None = None, axis_names: tuple = ("data",), device=None) -> Mesh:
     """The mesh over every rank of the process group (the default: one
     `data` axis), or `shape` 1 for this rank alone. `axis_names` may name
-    `data` and `model` in either order, as the JAX `make_mesh((dp, tp),
-    ("data", "model"))`: the ranks fill the mesh row-major, the last axis
-    fastest, and every rank creates every data group and then every model
-    group, in the same order. `device`: this rank's device (default the
-    one `init_distributed` chose, else the CUDA card)."""
+    `data`, `model` and `space`, each at most once and in any order, as the
+    JAX `make_mesh((dp, tp), ("data", "model"))`: the ranks fill the mesh
+    row-major, the last axis fastest, and every rank creates every data
+    group, then every model group, then every space group, in the same
+    order. `device`: this rank's device (default the one
+    `init_distributed` chose, else the CUDA card)."""
     axis_names = tuple(axis_names)
-    if "space" in axis_names:
-        raise NotImplementedError(f"mesh axes {axis_names}: the 'space' axis is not ported yet (the "
-                                  "spatial-partitioning slice of the port, ROADMAP item 6)")
-    if not axis_names or any(a not in ("data", "model") for a in axis_names) \
+    if not axis_names or any(a not in AXES for a in axis_names) \
             or len(set(axis_names)) != len(axis_names):
-        raise ValueError(f"mesh axes {axis_names}: name 'data' and 'model', each at most once")
+        raise ValueError(f"mesh axes {axis_names}: name 'data', 'model' and 'space', each at most once")
     shape = (shape,) if shape is None or isinstance(shape, int) else tuple(shape)
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} for axes {axis_names}")
@@ -88,31 +104,39 @@ def make_mesh(shape: int | tuple | None = None, axis_names: tuple = ("data",), d
     if shape == (None,):
         shape = (world,)
     sizes = dict(zip(axis_names, (int(n) for n in shape)))
-    dp, tp = sizes.get("data", 1), sizes.get("model", 1)
+    dp, tp, sp = (sizes.get(a, 1) for a in AXES)
     device = _canonical(resolve_device(device) if device is not None
                         else local_device() or resolve_device(None))
-    if dp * tp == 1:
+    n = dp * tp * sp
+    if n == 1:
         return Mesh(1, 0, None, device, axis_names)
-    if dp * tp != world:
-        raise ValueError(f"a mesh of {dp * tp} ranks ({sizes}) needs {dp * tp} processes; "
-                         f"this run has {world}")
-    if tp == 1:
+    if n != world:
+        raise ValueError(f"a mesh of {n} ranks ({sizes}) needs {n} processes; this run has {world}")
+    if tp == sp == 1:
         return Mesh(dp, process_index(), dist.group.WORLD, device, axis_names)
-    # rank -> (data index, model index), row-major over `axis_names`
+    # grid[d, m, s]: the rank at data index d, model index m, space index s
+    # (row-major over `axis_names`; an axis the mesh does not name has size 1)
     grid = np.arange(world).reshape(shape)
-    if axis_names[0] == "model":
-        grid = grid.T
-    grid = grid.reshape(dp, tp)  # grid[d, m]: the rank at data index d, model index m
+    names = list(axis_names)
+    for a in AXES:
+        if a not in names:
+            grid, names = grid[..., None], names + [a]
+    grid = grid.transpose([names.index(a) for a in AXES])
     me = process_index()
-    d, m = (int(i[0]) for i in np.nonzero(grid == me))
+    index = tuple(int(i[0]) for i in np.nonzero(grid == me))
     groups = {}
-    for axis, lines in (("data", grid.T), ("model", grid)):
-        for line in lines:
+    for k, axis in enumerate(AXES):
+        for line in np.moveaxis(grid, k, -1).reshape(-1, grid.shape[k]):
             if len(line) > 1:
                 g = dist.new_group([int(r) for r in line])
                 if me in line:
+                    # a line runs up the axis in rank order: the group's
+                    # ranks are in axis order (`gather_band`, `_all_gather`)
+                    assert dist.get_group_rank(g, me) == index[k], (axis, line, me)
                     groups[axis] = g
-    return Mesh(dp, d, groups.get("data"), device, axis_names, tp, m, groups.get("model"))
+    d, m, s = index
+    return Mesh(dp, d, groups.get("data"), device, axis_names, tp, m, groups.get("model"),
+                sp, s, groups.get("space"))
 
 
 def check_device(mesh: Mesh, device) -> None:
@@ -255,11 +279,13 @@ def _state_tensors(obj) -> list:
 
 
 def _axis(mesh: Mesh, axis: str) -> tuple:
-    """(size, group) of the mesh's `data` or `model` axis."""
+    """(size, group) of the mesh's `data`, `model` or `space` axis."""
     if axis == "data":
         return mesh.size, mesh.group
     if axis == "model":
         return mesh.model_size, mesh.model_group
+    if axis == "space":
+        return mesh.space_size, mesh.space_group
     raise ValueError(f"mesh axis {axis!r}")
 
 
@@ -583,3 +609,86 @@ def sharded_square_sum(tensors, mesh: Mesh) -> torch.Tensor:
     if mesh.model_size > 1:
         dist.all_reduce(sq, group=mesh.model_group)
     return sq
+
+
+# ------------------------------------------------------------------ spatial partitioning
+#
+# The `space` axis: the image height of the LFAE's encoder and decoder cut
+# into one contiguous band per rank (`models/generator.py::shard_generator`).
+# Each helper returns its input as it is (a one-rank `halo_rows` pads with
+# zeros) for no mesh or a space axis of one rank, so that one forward body
+# serves both forms.
+
+
+def _one_space_rank(mesh: Mesh | None) -> bool:
+    return mesh is None or mesh.space_size == 1
+
+
+def local_band(x, mesh: Mesh | None, dim: int = 1):
+    """This space rank's contiguous `1 / space_size` of the rows of `x`
+    along `dim` (the height of `[B, H, W, C]`), a view."""
+    if _one_space_rank(mesh):
+        return x
+    n = x.shape[dim]
+    if n % mesh.space_size:
+        raise ValueError(f"{n} rows along dim {dim} do not split into {mesh.space_size} bands")
+    k = n // mesh.space_size
+    return x.narrow(dim, mesh.space_rank * k, k)
+
+
+def gather_band(x: torch.Tensor, mesh: Mesh | None, dim: int = 1) -> torch.Tensor:
+    """The space group's bands of `x` concatenated along `dim` in space-rank
+    order (the whole height), on every rank of the group."""
+    if _one_space_rank(mesh):
+        return x
+    return torch.cat(_all_gather(x, mesh.space_group, mesh.space_size), dim=dim)
+
+
+def _p2p_wire(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` as point-to-point messages of `group`'s backend carry it: gloo's
+    `send` and `recv` read and write host memory only, so under gloo a
+    device tensor travels through a host copy, and bf16 as fp32 (exact
+    both ways); NCCL takes the tensor on its device."""
+    if dist.get_backend(group) == "gloo":
+        x = x.to("cpu", torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
+    return x.contiguous()
+
+
+def halo_rows(x: torch.Tensor, rows: int, mesh: Mesh | None, dim: int = 1) -> torch.Tensor:
+    """`x` (this rank's band) with `rows` rows of each neighbouring band
+    above and below along `dim`, and zeros past the image's top and bottom
+    edges, as a convolution's zero padding puts there: `[.., n + 2 rows, ..]`.
+    The rows travel by paired `isend` / `irecv` with the two neighbours
+    (`batch_isend_irecv`); a band thinner than `rows` raises."""
+    if rows == 0:
+        return x
+    n = x.shape[dim]
+    zeros = lambda: x.new_zeros(x.shape[:dim] + (rows,) + x.shape[dim + 1:])  # noqa: E731
+    if _one_space_rank(mesh):
+        return torch.cat([zeros(), x, zeros()], dim)
+    if rows > n:
+        raise ValueError(f"a halo of {rows} rows from a band of {n}: the bands are too thin")
+    group, r, size = mesh.space_group, mesh.space_rank, mesh.space_size
+    ops, recvs = [], {}
+    for peer, send in ((r - 1, x.narrow(dim, 0, rows)), (r + 1, x.narrow(dim, n - rows, rows))):
+        if 0 <= peer < size:
+            src = dist.get_global_rank(group, peer)
+            wire = _p2p_wire(send, group)
+            recvs[peer] = torch.empty_like(wire)
+            ops += [dist.P2POp(dist.isend, wire, src, group), dist.P2POp(dist.irecv, recvs[peer], src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    got = lambda peer: recvs[peer].to(x.device, x.dtype) if peer in recvs else zeros()  # noqa: E731
+    return torch.cat([got(r - 1), x, got(r + 1)], dim)
+
+
+def broadcast_space(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The first space rank's `x` on every rank of the space group (a new
+    tensor there; `x` itself on the first rank and for one rank)."""
+    if _one_space_rank(mesh):
+        return x
+    group = mesh.space_group
+    wire = (x.float() if x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo"
+            else x.clone()).contiguous()
+    dist.broadcast(wire, dist.get_global_rank(group, 0), group=group)
+    return x if mesh.space_rank == 0 else wire.to(x.dtype)

@@ -14,10 +14,15 @@ a rank's smaller batch.
 `--mesh dp=N,tp=M` adds the `model` axis: N * M processes, the UNet of
 each in its tensor-parallel form (`models/unet3d.py::shard_unet`: a
 rank's heads and channels, the fused layers in their head-shard mode),
-the LFAE replicated as in the JAX package. The M ranks of a model group
-sample the same rows with the same draws; rows are gathered over the
-`data` axis only. `sp` (the image height partitioned) is not ported yet:
-a mesh with it raises.
+the LFAE replicated as in the JAX package. `sp=K` adds the `space` axis:
+the LFAE's encoder and decoder of each rank in band mode
+(`models/generator.py::shard_generator`: its band of the image's rows,
+halo exchanges between neighbouring bands, each warp source gathered and
+the band's rows warped by row 3), the UNet whole on the gathered feature,
+the sampled latent broadcast from the first space rank before the decode.
+Any of the three combine (N * M * K processes, `data` x `model` x
+`space`). The model and space ranks of a data index sample the same rows
+with the same draws; rows are gathered over the `data` axis only.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from cvpr23_lfdm_torch.diffusion.gaussian_diffusion import _normal
 from cvpr23_lfdm_torch.parallel.distributed import process_count
+from cvpr23_lfdm_torch.models.generator import check_sp, shard_generator
 from cvpr23_lfdm_torch.models.unet3d import check_tp, shard_unet
 from cvpr23_lfdm_torch.parallel.mesh import all_gather_rows, local_rows, make_mesh
 
@@ -73,27 +79,32 @@ def parse_mesh_spec(spec: str) -> dict[str, int]:
     return out
 
 
-def serving_mesh(spec: str, device=None):
+def serving_mesh(spec: str, device=None, frame_shape: int | None = None, num_down_blocks: int = 2):
     """The mesh of a `--mesh` spec (None for an empty one): `dp=N` alone the
-    `data` mesh, with `tp=M` above 1 the `data` x `model` mesh. `N * M`
-    must be the number of processes, since a mesh member is a process
-    here, and M must divide the UNet's 8 GroupNorm groups. `sp` above 1
-    raises: that axis is not ported yet."""
+    `data` mesh; with `tp=M` or `sp=K` above 1 the `data` x `model`,
+    `data` x `space` or `data` x `model` x `space` mesh. `N * M * K` must
+    be the number of processes, since a mesh member is a process here; M
+    must divide the UNet's 8 GroupNorm groups (`check_tp`), and with the
+    frames' height `frame_shape` K must cut it into whole even bands
+    (`check_sp`, which the generator checks on its input too)."""
     axes = parse_mesh_spec(spec)
     if not axes:
         return None
-    if axes.get("sp", 1) > 1:
-        raise NotImplementedError(f"--mesh {spec!r}: the sp axis is not ported yet (the "
-                                  "spatial-partitioning slice of the port, ROADMAP item 6)")
-    dp, tp, world = axes.get("dp", 1), axes.get("tp", 1), process_count()
+    dp, tp, sp, world = axes.get("dp", 1), axes.get("tp", 1), axes.get("sp", 1), process_count()
     check_tp(tp)
-    if dp * tp != world:
-        what = f"dp={dp}" + (f" x tp={tp}" if tp > 1 else "")
-        raise ValueError(f"--mesh {spec!r}: {what} needs {dp * tp} processes, one per device "
+    if frame_shape is not None:
+        check_sp(sp, frame_shape, num_down_blocks)
+    if dp * tp * sp != world:
+        what = f"dp={dp}" + (f" x tp={tp}" if tp > 1 else "") + (f" x sp={sp}" if sp > 1 else "")
+        raise ValueError(f"--mesh {spec!r}: {what} needs {dp * tp * sp} processes, one per device "
                          f"(--num-processes or torchrun); this run has {world}")
-    if tp == 1:
+    if tp == sp == 1:
         return make_mesh(dp, device=device)
-    return make_mesh((dp, tp), ("data", "model"), device=device)
+    names, shape = ("data",), (dp,)
+    for name, n in (("model", tp), ("space", sp)):
+        if n > 1:
+            names, shape = names + (name,), shape + (n,)
+    return make_mesh(shape, names, device=device)
 
 
 class LocalDraws:
@@ -127,8 +138,9 @@ def sample_video_sharded(model, mesh, ref_imgs, conds, cond_scale: float = 1.0,
                          generator: torch.Generator | None = None, init_img=None,
                          noise_seq=None) -> dict:
     """Data-parallel `FlowDiffusion.sample_video` over `mesh` (with a
-    `model` axis, the UNet sharded first by `shard_unet`); every rank calls
-    it with the same global request batch.
+    `model` axis, the UNet sharded first by `shard_unet`; with a `space`
+    axis, the generator put in band mode first by `shard_generator`);
+    every rank calls it with the same global request batch.
 
     `ref_imgs [B, H, W, 3]` and `conds [B, cond_dim]` are padded (the last
     row repeated) to a multiple of the mesh's size; this rank samples its
@@ -138,6 +150,7 @@ def sample_video_sharded(model, mesh, ref_imgs, conds, cond_scale: float = 1.0,
     and `noise_seq [steps, B, F, h, w, 3]` inject them (the padded batch's
     rows, or the request's, padded as above)."""
     shard_unet(model.unet, mesh)
+    shard_generator(model.generator, mesh)
     b = ref_imgs.shape[0]
     rows = b + (-b) % mesh.size
     d = model.cfg

@@ -194,20 +194,23 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--num-processes", type=int, default=0,
                    help="multi-process: the number of processes, one per device")
     p.add_argument("--mesh", default="",
-                   help="mesh, 'dp=N' or 'dp=N,tp=M' with N*M the number of processes (demo, "
-                        "test_dm: the request batch sharded over dp, the UNet over tp, M dividing "
-                        "8; train_dm, train_lfae: the global batch, no tp); sp is not ported")
+                   help="mesh, 'dp=N', 'dp=N,tp=M', 'dp=N,sp=K' or 'dp=N,tp=M,sp=K' with N*M*K the "
+                        "number of processes (demo, test_dm: the request batch sharded over dp, the "
+                        "UNet over tp, M dividing 8, the LFAE's image height over sp in whole even "
+                        "bands; train_dm, train_lfae: the global batch over dp, no tp or sp)")
     p.add_argument("--process-id", type=int, default=-1, help="multi-process: this process's rank")
     return p
 
 
-def check_unported(args, multi_device: bool = False, tp: bool = False) -> None:
+def check_unported(args, multi_device: bool = False, serving: bool = False) -> None:
     """A flag whose machinery is not ported raises, never silently ignored:
     every multi-device flag unless the CLI takes them (`multi_device`), and
-    there a mesh with `sp` above 1, `tp` above 1 unless the CLI takes it
-    (`tp`: the serving CLIs) or when it does not divide 8, a mesh whose
-    size is not the number of processes, and an incomplete set of the
-    multi-process flags."""
+    there `tp` or `sp` above 1 unless the CLI serves (`serving`: demo and
+    test_dm; the training CLIs shard the batch only, as the JAX package's
+    do), `tp` when it does not divide 8, `sp` when it does not cut the
+    preset's frames into whole even bands, a mesh whose size is not the
+    number of processes, and an incomplete set of the multi-process
+    flags."""
     multi_process = bool(args.coordinator) or args.num_processes > 1 or args.process_id >= 0
     if not multi_device:
         if args.mesh or multi_process:
@@ -221,35 +224,46 @@ def check_unported(args, multi_device: bool = False, tp: bool = False) -> None:
         axes = parse_mesh_spec(args.mesh)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    if axes.get("sp", 1) > 1:
-        raise SystemExit(f"--mesh {args.mesh!r}: the sp axis is not ported yet (the "
-                         "spatial-partitioning slice, ROADMAP item 6)")
-    tpn = axes.get("tp", 1)
-    if tpn > 1 and not tp:
+    if any(n < 1 for n in axes.values()):
+        raise SystemExit(f"--mesh {args.mesh!r}: every axis takes at least 1 process")
+    tpn, spn = axes.get("tp", 1), axes.get("sp", 1)
+    if spn > 1 and not serving:
+        raise SystemExit(f"--mesh {args.mesh!r}: sp is serving only (demo and test_dm take it), as in "
+                         "the JAX package; the training CLIs shard the batch over dp")
+    if tpn > 1 and not serving:
         raise SystemExit(f"--mesh {args.mesh!r}: tp is not ported for this CLI (demo and test_dm take "
                          "it; tensor-parallel training is DMTrainer on a data x model mesh)")
-    if tpn > 1:
-        from cvpr23_lfdm_torch.models.unet3d import check_tp
+    try:
+        if tpn > 1:
+            from cvpr23_lfdm_torch.models.unet3d import check_tp
 
-        try:
             check_tp(tpn)
-        except ValueError as e:
-            raise SystemExit(str(e)) from None
+        if spn > 1:
+            from cvpr23_lfdm_torch.config import PRESETS
+            from cvpr23_lfdm_torch.models.generator import check_sp
+
+            lfae = PRESETS[args.dataset]().lfae
+            check_sp(spn, lfae.frame_shape, lfae.generator.num_down_blocks)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if multi_process and not (args.coordinator and args.num_processes > 1 and args.process_id >= 0):
         raise SystemExit("a multi-process run needs --coordinator, --num-processes (> 1) and "
                          "--process-id together (or torchrun's environment and none of them)")
     world = args.num_processes if multi_process else int(os.environ.get("WORLD_SIZE", 1))
-    if axes.get("dp", world // tpn) * tpn != world:
-        raise SystemExit(f"--mesh {args.mesh!r}: dp x tp must be the number of processes, one per "
-                         f"device ({world} in this run)")
+    dpn = axes.get("dp", max(1, world // (tpn * spn)))
+    if dpn * tpn * spn != world:
+        what = f"dp={dpn}" + (f" x tp={tpn}" if tpn > 1 else "") + (f" x sp={spn}" if spn > 1 else "")
+        raise SystemExit(f"--mesh {args.mesh!r}: dp x tp x sp must be the number of processes, one per "
+                         f"device: {what} needs {dpn * tpn * spn} processes ({world} in this run)")
 
 
-def setup(args, multi_device: bool = False, tp: bool = False) -> torch.device:
+def setup(args, multi_device: bool = False, serving: bool = False) -> torch.device:
     """Check the flags; the device the run takes (`--device`, else the card).
-    `multi_device`: the CLI takes `--mesh` and the multi-process flags."""
+    `multi_device`: the CLI takes `--mesh` and the multi-process flags;
+    `serving`: it also takes their `tp` and `sp` axes."""
     from cvpr23_lfdm_torch.utils.device import resolve_device
 
-    check_unported(args, multi_device, tp)
+    check_unported(args, multi_device, serving)
     return resolve_device(args.device)
 
 

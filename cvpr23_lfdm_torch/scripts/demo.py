@@ -17,7 +17,9 @@ directory through `CheckpointManager`. Sampling draws from one
 `--process-id`, or torchrun): every class in one request batch, sharded
 over the processes (`parallel/serving.py::sample_video_sharded`); rank 0
 writes the GIFs. `--mesh dp=N,tp=M` (N * M processes) shards the UNet of
-each over M ranks as well (its heads and channels; M divides 8).
+each over M ranks as well (its heads and channels; M divides 8), and
+`sp=K` (N * M * K processes) the LFAE's encoder and decoder over K ranks
+by image height (whole even bands, `models/generator.py::check_sp`).
 
 Usage: python -m cvpr23_lfdm_torch.scripts.demo [--device cpu] [--classes ...]
 """
@@ -125,7 +127,8 @@ def run(cfg, args) -> dict:
     from cvpr23_lfdm_torch.utils.viz import save_gif
 
     cfg, model = build_model(cfg, args)
-    mesh = serving_mesh(args.mesh, device=model.device)
+    mesh = serving_mesh(args.mesh, device=model.device, frame_shape=cfg.lfae.frame_shape,
+                        num_down_blocks=cfg.lfae.generator.num_down_blocks)
     if mesh is not None:
         replicate(model, mesh)
     size = cfg.lfae.frame_shape
@@ -169,7 +172,7 @@ def run(cfg, args) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args, multi_device=True, tp=True)
+    setup(args, multi_device=True, serving=True)
     with process_group(args):
         return run(build_config(args), args)
 

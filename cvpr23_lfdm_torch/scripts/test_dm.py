@@ -20,8 +20,10 @@ request batch sharded over the processes
 `--seed`; rank 0 then runs the monitoring forwards and the metrics and
 writes the GIFs, the other ranks return `{}`. `--mesh dp=N,tp=M` (N * M
 processes) shards the UNet of each over M ranks as well (its heads and
-channels; M divides 8); rank 0's model group then runs the monitoring
-forwards together.
+channels; M divides 8), and `sp=K` (N * M * K processes) the LFAE's
+encoder and decoder over K ranks by image height (whole even bands,
+`models/generator.py::check_sp`); the ranks of data index 0 (its model
+and space groups) then run the monitoring forwards together.
 
 Usage: python -m cvpr23_lfdm_torch.scripts.test_dm [--device cpu] [--synthetic]
        [--random-metric-weights] [--num-videos 4]
@@ -149,7 +151,8 @@ def run(cfg, args) -> dict:
 
     cfg, model = build_model(cfg, args)
     dev = model.device
-    mesh = serving_mesh(args.mesh, device=dev)
+    mesh = serving_mesh(args.mesh, device=dev, frame_shape=cfg.lfae.frame_shape,
+                        num_down_blocks=cfg.lfae.generator.num_down_blocks)
     if mesh is not None:
         replicate(model, mesh)
     root = resolve_data_root(args, cfg.lfae.frame_shape)
@@ -173,7 +176,7 @@ def run(cfg, args) -> dict:
         conds = torch.from_numpy(np.concatenate([embedder([it["text"]])[0] for it in items])).to(dev)
         sharded = sample_video_sharded(model, mesh, refs, conds, args.cond_scale, generator=gen)
         print(f"sampled {n} videos on mesh {args.mesh}")
-        if mesh.rank != 0:  # the monitoring forwards run in rank 0's model group only
+        if mesh.rank != 0:  # the monitoring forwards run on the ranks of data index 0 only
             return {}
     log = print if is_primary() else (lambda *a: None)
     for i in range(n):
@@ -226,7 +229,7 @@ def run(cfg, args) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    setup(args, multi_device=True, tp=True)
+    setup(args, multi_device=True, serving=True)
     with process_group(args):
         return run(build_config(args), args)
 

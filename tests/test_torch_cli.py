@@ -179,25 +179,27 @@ ABSENT = {"warp_impl"}
 UNPORTED = (["--mesh", "dp=2"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
             ["--process-id", "0"])
 # the CLIs that take the multi-device flags (demo, test_dm, train_dm,
-# train_lfae): the flags that still raise, and what they say (`tp=2` in one
-# process: the serving CLIs take tp and want 2 processes, the training CLIs
-# do not take it)
-MULTI_DEVICE_ERRORS = ((["--mesh", "tp=2"], "not ported"), (["--mesh", "dp=1,sp=2"], "not ported"),
+# train_lfae): the flags that still raise, and what they say (`tp=2` or
+# `sp=2` in one process: the serving CLIs take tp and sp and want 2
+# processes, the training CLIs take neither)
+MULTI_DEVICE_ERRORS = ((["--mesh", "tp=2"], "not ported"), (["--mesh", "dp=1,sp=2"], "serving only"),
                        (["--mesh", "dp=2"], "number of processes"),
-                       (["--mesh", "zz=2"], "unknown mesh axis"),
+                       (["--mesh", "zz=2"], "unknown mesh axis"), (["--mesh", "sp=0"], "at least 1"),
                        (["--coordinator", "localhost:1234"], "together"),
                        (["--num-processes", "2"], "together"), (["--process-id", "0"], "together"))
-TP_ERRORS = {("--mesh", "tp=2"): "number of processes", ("--mesh", "dp=1,tp=3"): "must divide"}
+SERVING_ERRORS = {("--mesh", "tp=2"): "number of processes", ("--mesh", "dp=1,tp=3"): "must divide",
+                  ("--mesh", "dp=1,sp=2"): "needs 2 processes", ("--mesh", "sp=3"): "must divide the height",
+                  ("--mesh", "tp=2,sp=2"): "tp=2 x sp=2 needs 4 processes"}
 
 
-def assert_multi_device_flags(module, multi_device: bool, tp: bool = False):
+def assert_multi_device_flags(module, multi_device: bool, serving: bool = False):
     """Each flag that cannot run here raises before any work: every
     multi-device flag where the CLI does not take them, else the table
-    (with `tp`, a CLI that takes the tp axis)."""
+    (with `serving`, a CLI that takes the tp and sp axes)."""
     cases = MULTI_DEVICE_ERRORS if multi_device else [(f, "not ported") for f in UNPORTED]
-    if tp:
-        cases = [(f, TP_ERRORS.get(tuple(f), m)) for f, m in cases] + [
-            (list(f), m) for f, m in TP_ERRORS.items() if list(f) not in [c[0] for c in cases]]
+    if serving:
+        cases = [(f, SERVING_ERRORS.get(tuple(f), m)) for f, m in cases] + [
+            (list(f), m) for f, m in SERVING_ERRORS.items() if list(f) not in [c[0] for c in cases]]
     for flags, message in cases:
         with pytest.raises(SystemExit, match=message):
             module.main(["--device", "cpu", *flags])
@@ -220,7 +222,7 @@ def test_parser_keeps_the_jax_flags(name, module):
                 tuple(action.default) if isinstance(action.default, list) else action.default), dest
             assert ours[dest].option_strings == action.option_strings, dest
     assert ours["device"].default is None  # the card unless the caller says otherwise
-    assert_multi_device_flags(module, name != "eval_flowautoenc", tp=name != "eval_flowautoenc")
+    assert_multi_device_flags(module, name != "eval_flowautoenc", serving=name != "eval_flowautoenc")
 
 
 CARD_INSTALL = """

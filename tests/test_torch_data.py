@@ -248,9 +248,26 @@ def test_clip_augment_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-def test_native_matches_jax():
+@pytest.fixture
+def jax_native_lib(monkeypatch, tmp_path):
+    """The JAX package's native library, built by its own `_build` (its
+    flags) into this test's directory and loaded by its own `get_lib`. Its
+    shared build (`native/liblfdm_data.so`, written in place) can be caught
+    half-written by another worker building it at the same time, after
+    which that process's `get_lib` gives up and takes numpy; a private
+    build cannot."""
+    monkeypatch.setattr(jnative, "_LIB_PATH", str(tmp_path / "liblfdm_data.so"))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    lib = jnative.get_lib()
+    assert lib is not None, "the JAX package's native library did not build"
+    return lib
+
+
+def test_native_matches_jax(jax_native_lib):
     assert tnative.available()
     assert tnative._lib_path().startswith(os.path.join(ROOT, "cvpr23_lfdm_torch", "build"))
+    assert jnative.get_lib() is jax_native_lib
     rng = np.random.default_rng(10)
     u8 = (rng.random((3, 50, 70, 3)) * 255).astype(np.uint8)
     f32 = rng.random((3, 50, 70, 3)).astype(np.float32)

@@ -550,12 +550,42 @@ def test_warp_video_kernel_is_bit_equal_to_plain(dev, dtype, c, w, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,c", [(32, 256), (64, 128), (128, 67)])
+def test_warp_video_kernel_on_a_band_of_rows(dev, dtype, h, c):
+    """Row 3 on a band of output rows (`Ho < Hs`), at the three decode
+    scales (B=1, F=40): each band of sp=2 and a band of 3 rows inside the
+    image, bit-equal to plain and to those rows of the whole-height call
+    (itself bit-equal to plain), one device launch, counted in
+    `band_launches`."""
+    g = torch.Generator(device=dev).manual_seed(h + c)
+    src = torch.randn(1, h, h, c, generator=g, device=dev).to(dtype)
+    lin = torch.linspace(-1, 1, h, device=dev)
+    ident = torch.stack(torch.meshgrid(lin, lin, indexing="xy"), -1)
+    grid = (ident[None, None] + 0.3 * torch.randn(1, 40, h, h, 2, generator=g, device=dev)).contiguous()
+    with torch.no_grad():
+        whole = W.warp_video(src, grid)
+        assert torch.equal(whole, W.warp_video_plain(src, grid))
+        for lo, hi in ((0, h // 2), (h // 2, h), (5, 8)):
+            band_grid = grid[:, :, lo:hi].contiguous()
+            before = (W.warp_video.launches, W.warp_video.band_launches)
+            band = W.warp_video(src, band_grid)
+            assert (W.warp_video.launches, W.warp_video.band_launches) == (before[0] + 1, before[1] + 1)
+            assert band.shape == (1, 40, hi - lo, h, c) and band.dtype == dtype
+            assert torch.equal(band, W.warp_video_plain(src, band_grid))
+            assert torch.equal(band, whole[:, :, lo:hi])
+            assert _one_launch(lambda: W.warp_video(src, band_grid))
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_arguments(dev):
     src = torch.randn(1, 8, 8, 4, device=dev)
     with pytest.raises(TypeError):
         W.warp_video(src, torch.zeros(1, 2, 8, 8, 2, device=dev, dtype=torch.float64))
     with pytest.raises(ValueError):
         W.warp_video(src, torch.zeros(1, 2, 4, 4, 2, device=dev))
+    with pytest.raises(ValueError):  # an output band taller than the source
+        W.warp_video(src, torch.zeros(1, 2, 9, 8, 2, device=dev))
 
 
 def _headpacked_inputs(dev, dtype, b, f, hw, heads, focus, seed=3, gap=0.0):

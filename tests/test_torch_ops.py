@@ -195,7 +195,7 @@ def test_kernel_counters_table_and_no_count_on_cpu():
     from cvpr23_lfdm_torch import ops as tops
 
     table = tops.kernel_counters()
-    assert len(table) == 12 and all(hasattr(fn, attr) for fn, attr in table.values())
+    assert len(table) == 13 and all(hasattr(fn, attr) for fn, attr in table.values())
     tops.reset_counters()
     rng = np.random.RandomState(8)
     img = _t(rng.randn(1, 4, 4, 3).astype(np.float32))

@@ -122,16 +122,20 @@ def test_serving_mesh_errors_and_one_process():
     assert serving_mesh("") is None
     with pytest.raises(ValueError, match="dp=2 needs 2 processes"):
         serving_mesh("dp=2", device="cpu")
-    with pytest.raises(NotImplementedError, match="the sp axis is not ported yet"):
-        serving_mesh("sp=2", device="cpu")
-    for spec, n in (("dp=1,tp=2", 2), ("dp=2,tp=2", 4)):  # tp is ported: the processes are missing
+    for spec, n in (("sp=2", 2), ("dp=1,tp=2", 2), ("dp=2,tp=2", 4), ("dp=2,sp=2", 4),
+                    ("dp=1,tp=2,sp=2", 4)):  # tp and sp are ported: the processes are missing
         with pytest.raises(ValueError, match=f"needs {n} processes"):
             serving_mesh(spec, device="cpu")
     mesh = serving_mesh("dp=1", device="cpu")
     assert (mesh.size, mesh.rank, mesh.group, mesh.device) == (1, 0, None, torch.device("cpu"))
     assert mesh.shape == {"data": 1} and mesh.axis_names == ("data",)
-    with pytest.raises(NotImplementedError, match="the 'space' axis is not ported yet"):
-        M.make_mesh((1, 1), ("data", "space"), device="cpu")
+    mesh = M.make_mesh((1, 1), ("data", "space"), device="cpu")
+    assert (mesh.size, mesh.space_size, mesh.space_rank, mesh.space_group) == (1, 1, 0, None)
+    assert mesh.shape == {"data": 1, "space": 1} and mesh.axis_names == ("data", "space")
+    with pytest.raises(ValueError, match="sp=2 needs 2 processes"):
+        serving_mesh("sp=2", device="cpu", frame_shape=128)
+    with pytest.raises(ValueError, match="must divide the height 128"):
+        serving_mesh("sp=3", device="cpu", frame_shape=128)
     with pytest.raises(ValueError, match="needs 2 processes"):
         M.make_mesh(2, device="cpu")
 

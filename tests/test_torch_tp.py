@@ -437,9 +437,15 @@ def test_demo_mesh_tp2_on_two_processes(tp, tmp_path):
     """`demo --mesh tp=2`: one GIF per class written by rank 0 only; both
     ranks' videos equal, and within 2e-4 of one process's `sample_video` of
     the class batch from the same generator."""
-    r0, r1 = (res["tp_cli"]["demo"] for res in tp["results"])
-    classes = tp["classes"]
-    assert len(r0["gifs"]) == 3 and r1["gifs"] == []
+    assert_demo_matches_one_process([res["tp_cli"]["demo"] for res in tp["results"]], tp["classes"], tmp_path)
+
+
+def assert_demo_matches_one_process(ranks: list, classes: list, tmp_path):
+    """`demo` on a mesh whose ranks all sample every class (`ranks`: each
+    rank's GIFs and outputs): rank 0 alone wrote one GIF per class, every
+    rank's videos are equal, and within 2e-4 of one process's
+    `sample_video` of the class batch from the same generator."""
+    assert len(ranks[0]["gifs"]) == len(classes) and all(r["gifs"] == [] for r in ranks[1:])
     args = demo.parser().parse_args(["--device", "cpu", "--log-dir", str(tmp_path)])
     saved, demo.BENCH_CKPT = demo.BENCH_CKPT, str(tmp_path / "none")
     try:
@@ -448,9 +454,10 @@ def test_demo_mesh_tp2_on_two_processes(tp, tmp_path):
         demo.BENCH_CKPT = saved
     img = torch.from_numpy(demo.reference_image(args, cfg.lfae.frame_shape))
     conds = torch.from_numpy(load_text_embedder(args)(classes)[0])
-    want = model.sample_video(img[None].expand(3, -1, -1, -1), conds, 1.0,
+    want = model.sample_video(img[None].expand(len(classes), -1, -1, -1), conds, 1.0,
                               generator=torch.Generator().manual_seed(args.seed))
     for bi, text in enumerate(classes):
-        for key, v in r0["outputs"][text].items():
-            np.testing.assert_array_equal(v, r1["outputs"][text][key])
+        for key, v in ranks[0]["outputs"][text].items():
+            for other in ranks[1:]:
+                np.testing.assert_array_equal(v, other["outputs"][text][key])
             np.testing.assert_allclose(v, want[key][bi:bi + 1].numpy(), atol=2e-4, err_msg=key)

@@ -1,5 +1,6 @@
 """The rank side of the port's multi-process tests (`test_torch_parallel.py`,
-`test_torch_dp_train.py`, `test_torch_tp.py`, `test_torch_tp_mesh.py`).
+`test_torch_dp_train.py`, `test_torch_tp.py`, `test_torch_tp_mesh.py`,
+`test_torch_sp.py`).
 
     python tests/torch_dp_worker.py <cases.pt> <rank>
 
@@ -185,15 +186,15 @@ def _run_cli(module, argv, port, cfg, rank, world):
 
     args = module.parser().parse_args([*argv, "--coordinator", f"127.0.0.1:{port}",
                                        "--num-processes", str(world), "--process-id", str(rank)])
-    _common.setup(args, multi_device=True, tp=module.__name__.endswith(("demo", "test_dm")))
+    _common.setup(args, multi_device=True, serving=module.__name__.endswith(("demo", "test_dm")))
     with _common.process_group(args):
         return module.run(cfg, args)
 
 
 def case_tp_cli(inp, rank, ports, world):
     """`demo` (with `inp["demo"]`) or `test_dm` (with `inp["test_dm"]`) on a
-    mesh with a `model` axis; the demo's outputs and GIFs, `test_dm`'s
-    result."""
+    mesh with a `model` or `space` axis; the demo's outputs and GIFs,
+    `test_dm`'s result."""
     from cvpr23_lfdm_torch.scripts import demo, test_dm
 
     out = {}
@@ -348,10 +349,58 @@ def case_tp_dm_step(inp, rank):
                     for i, s in saved["optimizer"]["state"].items() for key in ("exp_avg", "exp_avg_sq"))}
 
 
+def case_sp_meshes(inp, rank):
+    """On each mesh of `inp["meshes"]` (shape, axis names): this rank's
+    (data, model, space) indices and sizes, and the gathered bands of a
+    tensor whose rows hold the space rank; on the first, `halo_rows` of
+    this rank's band of `inp["x"]` (fp32 and bf16) and `broadcast_space`."""
+    out = {"meshes": []}
+    for shape, names in inp["meshes"]:
+        mesh = M.make_mesh(tuple(shape), tuple(names), device="cpu")
+        tag = torch.full((1, 2, 1, 1), float(mesh.space_rank))
+        out["meshes"].append({"index": (mesh.rank, mesh.model_rank, mesh.space_rank),
+                              "sizes": (mesh.size, mesh.model_size, mesh.space_size), "shape": mesh.shape,
+                              "gathered": M.gather_band(tag, mesh)})
+        if "x" in inp and "halo" not in out:
+            out["halo"] = {str(dt): M.halo_rows(M.local_band(inp["x"].to(dt), mesh), inp["rows"], mesh)
+                           for dt in (torch.float32, torch.bfloat16)}
+            out["band"] = M.local_band(inp["x"], mesh)
+            out["broadcast"] = M.broadcast_space(torch.full((3,), float(rank)).to(torch.bfloat16), mesh)
+    return out
+
+
+def case_sp_serving(inp, rank):
+    """`sample_video_sharded` on the mesh `inp["mesh"]` of axes
+    `inp["axes"]` (a `space` axis among them) from injected gaussians;
+    with `decode`, first the band-mode generator's gathered `compute_fea`
+    and `decode_video_with_flow`; then whether train mode is refused."""
+    from cvpr23_lfdm_torch.diffusion.flow_diffusion import FlowDiffusion
+    from cvpr23_lfdm_torch.models.generator import shard_generator
+    from cvpr23_lfdm_torch.parallel.serving import sample_video_sharded
+
+    cfg = inp["cfg"]
+    mesh = M.make_mesh(tuple(inp["mesh"]), tuple(inp["axes"]), device="cpu")
+    model = FlowDiffusion(cfg.lfae, cfg.diffusion, device="cpu")
+    model.load_state_dict(inp["model"])
+    out = {"mesh": (mesh.rank, mesh.model_rank, mesh.space_rank, mesh.shape)}
+    if "decode" in inp:
+        g = shard_generator(model.generator, mesh)
+        src, flow, occ = inp["decode"]
+        out["fea"] = g.compute_fea(src)
+        out["decode"] = g.decode_video_with_flow(src, flow, occ)
+    out["out"] = sample_video_sharded(model, mesh, inp["ref"], inp["cond"], 1.0,
+                                      init_img=inp["init"], noise_seq=inp["noise"])
+    try:
+        model.generator.train()
+    except ValueError as e:
+        out["train_refused"] = str(e)
+    return out
+
+
 CASES = {"basics": case_basics, "mean_grad": case_mean_grad, "replicate": case_replicate,
          "syncbn": case_syncbn, "serving": case_serving, "dm_steps": case_dm_steps,
          "lfae_steps": case_lfae_steps, "tp_meshes": case_tp_meshes, "tp_forms": case_tp_forms, "tp_serving": case_tp_serving,
-         "tp_dm_step": case_tp_dm_step}
+         "tp_dm_step": case_tp_dm_step, "sp_meshes": case_sp_meshes, "sp_serving": case_sp_serving}
 
 
 def main(path: str, rank: int) -> None:
