@@ -16,12 +16,20 @@ Volumes are channel-last `[B, F, h, w, C]` (C = 3: 2 flow + 1 conf).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from cvpr23_lfdm_torch.diffusion.schedule import DiffusionSchedule
 from cvpr23_lfdm_torch.ops.quantile import quantile_nonneg
+
+
+@functools.cache
+def _device_index(ts: tuple, device: torch.device) -> torch.Tensor:
+    """`ts` as an index tensor on `device`, uploaded once per (ts, device):
+    a sampler call enqueues its work without waiting on a copy."""
+    return torch.tensor(ts, device=device)
 
 
 def _extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -259,8 +267,8 @@ class GaussianDiffusion:
         img = _normal(shape, generator, device) if init_img is None else init_img
         fea_1 = fea[:, None]
         t_cur, t_next = self.ddim_times()
-        alpha = s.alphas_cumprod_prev[t_cur]
-        alpha_next = s.alphas_cumprod_prev[t_next]
+        alpha = s.alphas_cumprod_prev[_device_index(tuple(t_cur), s.alphas_cumprod_prev.device)]
+        alpha_next = s.alphas_cumprod_prev[_device_index(tuple(t_next), s.alphas_cumprod_prev.device)]
         sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
         coef = torch.sqrt(torch.clamp_min((1 - alpha_next) - sigma ** 2, 0.0))
         for i, (tc, tn) in enumerate(zip(t_cur, t_next)):

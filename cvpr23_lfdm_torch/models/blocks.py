@@ -28,6 +28,18 @@ def _compute_dtype(dtype, x: torch.Tensor) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, torch.float32)
 
 
+def split_bias(bias, dt: torch.dtype) -> tuple:
+    """`(inside, after)`: the bias a product in `dt` takes inside its call,
+    and the one added to its result after it. flax's `nn.Conv` / `nn.Dense`
+    round the product to the compute dtype and then add the bias in it, so
+    under bf16 the bias goes after the rounded product; in fp32 (one
+    rounding either way) it goes inside."""
+    if bias is None:
+        return None, None
+    b = bias.to(dt)
+    return (b, None) if torch.finfo(dt).bits >= 32 else (None, b)
+
+
 class Conv2d(nn.Module):
     """2D conv on `[N, H, W, C]`; weight OIHW (a flax HWIO kernel transposed).
 
@@ -61,12 +73,10 @@ class Conv2d(nn.Module):
             from cvpr23_lfdm_torch.parallel.mesh import halo_rows
 
             x, padding = halo_rows(x, padding, self.space), (0, padding)
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt),
-            stride=self.stride, padding=padding,
-        )
-        return y.permute(0, 2, 3, 1)
+        inside, after = split_bias(self.bias, dt)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), inside,
+                     stride=self.stride, padding=padding).permute(0, 2, 3, 1)
+        return y if after is None else y + after
 
 
 class Dense(nn.Linear):
@@ -79,10 +89,9 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x)
-        return F.linear(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt),
-        )
+        inside, after = split_bias(self.bias, dt)
+        y = F.linear(x.to(dt), self.weight.to(dt), inside)
+        return y if after is None else y + after
 
 
 class BatchNorm(nn.Module):

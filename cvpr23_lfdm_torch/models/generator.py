@@ -15,6 +15,11 @@ Warp plan (as `Generator._decode_warp_stack` in the JAX package):
 * the full-res skip and the source image are warped together;
 * `deformed` is fp32 in the final blend;
 * flow and occlusion are resized once per scale.
+`skips=False` (the JAX package's no-skip decode, `Generator.skips`): the
+bottleneck warp alone, the up blocks without skip blends, the final
+sigmoid with no blend; `deformed` is the fp32 source warped at full
+resolution by the resized flow, as the JAX package's `warp_with_occlusion`
+(no occlusion). It has no band mode: `shard_generator` refuses it.
 The module's `train`/`eval` mode is the JAX package's `train` argument, and
 it picks the warp by path, as the JAX generator does: in eval mode every
 warp is the kernel :func:`cvpr23_lfdm_torch.ops.warp.warp_video`, exact for
@@ -75,8 +80,7 @@ class Generator(nn.Module):
                  num_regions: int = 10, revert_axis_swap: bool = True,
                  pixelwise_flow_params: dict | None = None, dtype=None):
         super().__init__()
-        if not skips:
-            raise NotImplementedError("the port's generator decodes with skips (all presets)")
+        self.skips = skips
         self.num_down_blocks = num_down_blocks
         self.num_bottleneck_blocks = num_bottleneck_blocks
         self.pixelwise_flow_predictor = None
@@ -256,14 +260,18 @@ class Generator(nn.Module):
         for blk in self._blocks("bottleneck_r", self.num_bottleneck_blocks):
             out = blk(out)
         for i, blk in enumerate(self._blocks("up_blocks_", self.num_down_blocks)):
-            if i == 0:
+            if self.skips and i == 0:
                 # skip_feats[-1] IS bottleneck_feat: reuse its warp
                 out = blend(w32, occ32, out)
-            else:
+            elif self.skips:
                 skip = gather_band(skip_feats[-(i + 1)], sp)
                 res = tuple(skip.shape[1:3])
                 out = blend(warp_from(skip, res), prep(res)[1], out)
             out = blk(out)
+        if not self.skips:
+            out = torch.sigmoid(self.final(out).float())
+            res0 = tuple(source_image.shape[1:3])
+            return out, warp_from(source_image, res0).float()
         skip0 = skip_feats[0]
         c0 = skip0.shape[-1]
         pack = gather_band(torch.cat([skip0, local_band(source_image, sp).to(skip0.dtype)], dim=-1), sp)
@@ -290,6 +298,9 @@ def shard_generator(generator: Generator, mesh) -> Generator:
         return generator
     if generator.sp is not None:
         raise ValueError("shard_generator: the generator is already in band mode on another mesh")
+    if not generator.skips:
+        raise ValueError("shard_generator: band mode is the skip decode's; a generator built with "
+                         "skips=False (the JAX package's no-skip decode) runs on one rank")
     if generator.training:
         raise ValueError("shard_generator: sp is serving only, as in the JAX package; the generator "
                          "is in train mode")

@@ -43,6 +43,7 @@ is None runs as above, bit for bit.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -50,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvpr23_lfdm_torch.models.blocks import Conv2d, Dense, _compute_dtype
+from cvpr23_lfdm_torch.models.blocks import Conv2d, Dense, _compute_dtype, split_bias
 from cvpr23_lfdm_torch.ops import attention as attn_ops
 from cvpr23_lfdm_torch.ops import norm as norm_ops
 from cvpr23_lfdm_torch.parallel.mesh import (
@@ -113,10 +114,17 @@ class RelativePositionBias(nn.Module):
         self.relative_attention_bias = nn.Embedding(num_buckets, heads)
 
     def forward(self, n: int) -> torch.Tensor:
-        pos = np.arange(n, dtype=np.int64)
-        buckets = _rel_pos_bucket(pos[None, :] - pos[:, None], self.num_buckets, self.max_distance)
-        idx = torch.from_numpy(buckets).to(self.relative_attention_bias.weight.device)
+        idx = _rel_pos_index(n, self.num_buckets, self.max_distance, self.relative_attention_bias.weight.device)
         return self.relative_attention_bias(idx).permute(2, 0, 1)
+
+
+@functools.cache
+def _rel_pos_index(n: int, num_buckets: int, max_distance: int, device) -> torch.Tensor:
+    """The `[n, n]` bucket index on `device`, uploaded once per arguments
+    (as `_rotary_freqs` and `ops/attention.py::rotary_tables`): an eval
+    enqueues its work without waiting on a copy."""
+    pos = np.arange(n, dtype=np.int64)
+    return torch.from_numpy(_rel_pos_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance)).to(device)
 
 
 class ChannelLayerNorm(nn.Module):
@@ -140,6 +148,7 @@ class ChannelLayerNorm(nn.Module):
         return (x - mean.to(x.dtype)) * inv * self.gamma.to(x.dtype)
 
 
+@functools.cache
 def _rotary_freqs(dim_head: int, n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Interleaved rotary tables `[n, dim_head]` fp32 over the first
     min(32, dim_head) channels (cos 1, sin 0 beyond)."""
@@ -480,10 +489,12 @@ class Upsample(nn.Module):
         y = copy_to_model(x, self.tp).reshape(b * f, h, w, c)
         if self.use_deconv:
             dt = self.dtype
+            inside, after = split_bias(self.bias, dt)
             y = F.conv_transpose2d(
-                y.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
-                stride=2, padding=1,
+                y.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), inside, stride=2, padding=1,
             ).permute(0, 2, 3, 1)
+            if after is not None:
+                y = y + after
         else:
             y = self.conv(y.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
         return gather_channels(y.reshape(b, f, 2 * h, 2 * w, -1), self.tp)
@@ -622,14 +633,17 @@ def project_out(dense: Dense, o: torch.Tensor, mesh) -> torch.Tensor:
     """`to_out` of an attention layer; in the tensor-parallel form the
     row-parallel product of this rank's heads in fp32 (the operands rounded
     to the compute dtype, as the one-process product takes them), summed
-    over the model group, `+ bias`, then rounded to the compute dtype."""
+    over the model group and rounded to the compute dtype, then `+ bias`
+    as the one-process `Dense` adds it (`blocks.split_bias`)."""
     if mesh is None:
         return dense(o)
     dt = _compute_dtype(dense.dtype, o)
+    inside, after = split_bias(dense.bias, dt)
     out = reduce_from_model(F.linear(o.to(dt).float(), dense.weight.to(dt).float()), mesh)
-    if dense.bias is not None:
-        out = out + dense.bias.to(dt).float()
-    return out.to(dt)
+    if inside is not None:
+        out = out + inside
+    out = out.to(dt)
+    return out if after is None else out + after
 
 
 def column_dense(dense: Dense, x: torch.Tensor, mesh) -> torch.Tensor:
@@ -639,8 +653,9 @@ def column_dense(dense: Dense, x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None:
         return dense(x)
     dt = _compute_dtype(dense.dtype, x)
-    return F.linear(copy_to_model(x, mesh).to(dt), dense.weight.to(dt),
-                    model_slice(dense.bias, mesh).to(dt))
+    inside, after = split_bias(model_slice(dense.bias, mesh), dt)
+    y = F.linear(copy_to_model(x, mesh).to(dt), dense.weight.to(dt), inside)
+    return y if after is None else y + after
 
 
 # module classes that run on a shard, and their parameters that the rules

@@ -154,10 +154,13 @@ _REGS = 160  # registers per thread of the bf16 temporal-layer kernel (ptxas: 12
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
+@functools.cache
 def rotary_tables(f: int, heads: int, dim_head: int, scale: float, dtype,
                   device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotary + q-scale folded into full-width qkv tables `[F, 3*h*d]`:
-    q columns get scale*cos/scale*sin, k columns cos/sin, v columns 1/0."""
+    q columns get scale*cos/scale*sin, k columns cos/sin, v columns 1/0.
+    Made once per arguments and kept on `device` (read only): a layer's
+    call enqueues its work without waiting on an upload."""
     rot_dim = min(32, dim_head)
     freqs = 1.0 / (10000.0 ** (np.arange(0, rot_dim, 2, dtype=np.float64) / rot_dim))
     ang = np.repeat(np.outer(np.arange(f, dtype=np.float64), freqs), 2, -1)

@@ -13,7 +13,8 @@ Three hooks, each drawing from a generator of `--seed` and the step
 `<log-dir>/dm_imgs`), the training-batch GIF (`--save-vid-freq`,
 `dm_vidshots`, through `utils/viz.py::dm_training_gif`) and a sampled
 video's GIF (`--sample-vid-freq`, `dm_samples`, `DMTrainer.sample_video`
-at cond_scale 1). Checkpoints go to `<log-dir>/dm_ckpt`
+at cond_scale 1, with the preset's sampler or, with `--sampling-steps N`,
+DDIM-N). Checkpoints go to `<log-dir>/dm_ckpt`
 (`CheckpointManager`: the trainer's state, the seed and with `--loader
 grain` the loader's position); `--resume` continues from the latest at its
 step, on the batch a straight run would take there.
@@ -54,6 +55,8 @@ def parser():
     p.add_argument("--save-img-freq", type=int, default=0, help="0 = preset")
     p.add_argument("--save-vid-freq", type=int, default=0, help="0 = preset")
     p.add_argument("--sample-vid-freq", type=int, default=0, help="0 = preset")
+    p.add_argument("--sampling-steps", type=int, default=0,
+                   help="DDIM steps of the sample hook's video (0 = the preset's sampler)")
     p.add_argument("--mean", type=float, nargs=3, default=(0.0, 0.0, 0.0),
                    help="per-channel pixel mean, 0-255 scale (reference MEAN constant; "
                         "every reference script uses (0,0,0))")
@@ -69,7 +72,8 @@ def build_config(args):
     cfg = PRESETS[args.dataset]()
     cfg = cfg.replace(diffusion=dataclasses.replace(
         cfg.diffusion, temporal_attn_impl=resolve_attn_impl(args, training=True),
-        objective=args.objective))
+        objective=args.objective,
+        sampling_timesteps=args.sampling_steps or cfg.diffusion.sampling_timesteps))
     return apply_lfae_dtype(cfg, args)
 
 

@@ -5,7 +5,9 @@ PyTorch returns before the device finishes, so a call is timed between two
 CUDA events on the current stream; the median over the repetitions is the
 reading (`time_fn`: the host's work in the call included). `device_ms`
 reads the device time alone from torch.profiler. The L2 cache is warm:
-every repetition sees the same tensors.
+every repetition sees the same tensors. `KERNEL_GROUPS` / `device_groups`
+are the one grouping of a profile's device kernels (each of the port's own
+kernels in a group of its own) that the scripts and `chip_smoke.py` read.
 """
 
 from __future__ import annotations
@@ -66,6 +68,47 @@ def profile_rows(prof) -> list:
                          "on_device": getattr(ev, "device_type", None) == DeviceType.CUDA})
     rows.sort(key=lambda r: -r["device_ms"])
     return rows
+
+
+# (group, parts of device kernel names), first match wins: the port's kernels
+# (`cvpr23_lfdm_torch/csrc/`, by the kernel table's rows; the fp32 kernels of
+# row 2 by their namespace-qualified names), then the library's kernels
+KERNEL_GROUPS = (
+    ("fused_temporal_layer", ("fused_temporal_layer_mma_kernel", "fused_temporal_layer_kernel")),
+    ("fused_spatial_linear_layer", ("linear_context_mma_kernel", "linear_output_mma_kernel",
+                                    "::context_kernel<", "::output_kernel<")),
+    ("warp_blend", ("warp_blend_kernel",)),  # rows 3, 8 and 9 are one kernel
+    ("headpacked_fwd", ("headpacked_fwd_mma_kernel", "headpacked_fwd_kernel")),
+    ("headpacked_bwd", ("headpacked_bwd_mma_kernel", "headpacked_bwd_kernel",
+                        "headpacked_dbias_kernel")),
+    ("packed_attention", ("packed_attention_mma_kernel", "packed_attention_kernel")),
+    ("groupnorm_film_silu", ("groupnorm_film_silu_kernel",)),
+    ("grid_sample", ("grid_sampler",)),
+    ("conv_gemm", ("xmma", "cudnn", "fft", "implicit_gemm", "region_transform", "gemm", "gemv",
+                   "dgrad", "wgrad", "cutlass", "flip_filter", "nchwToNhwc", "nhwcToNchw")),
+    ("adam", ("multi_tensor", "foreach", "adam")),
+    ("kthvalue", ("kthvalue", "gatherKthValue")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copy", ("Memcpy", "Memset", "copy")),
+)
+PORT_GROUPS = tuple(g for g, _ in KERNEL_GROUPS[:7])
+
+
+def group_name(kernel: str) -> str:
+    """The group of a device kernel's name (`other` when none matches)."""
+    return next((g for g, keys in KERNEL_GROUPS if any(k in kernel for k in keys)), "other")
+
+
+def device_groups(rows, per: int = 1) -> dict:
+    """Device ms and launches of a profile's device rows by group, over
+    `per` (videos, steps)."""
+    out = {}
+    for r in rows:
+        entry = out.setdefault(group_name(r["name"]), {"device_ms": 0.0, "launches": 0})
+        entry["device_ms"] += r["device_ms"] / per
+        entry["launches"] += r["count"] / per
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_ms"]))
 
 
 def device_ms(fn, reps: int = 10, launches: int | None = None, by: tuple = ()):

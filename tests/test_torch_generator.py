@@ -65,3 +65,40 @@ def test_decode_video_with_flow_matches_jax(warp_impl):
     for key in ("prediction", "deformed", "bottle_neck_feat"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=1e-4, err_msg=key)
     assert out["prediction"].shape == (1, 3, 64, 64, 3)
+
+
+@pytest.mark.parametrize("warp_impl", ["xla", "tiled"])
+def test_no_skip_decode_matches_jax(warp_impl):
+    """`skips=False`, the JAX package's no-skip decode: the bottleneck warp
+    alone, no skip blends, `deformed` the source warped at full resolution;
+    the JAX no-skip generator's parameters through `from_jax_params`; band
+    mode refused."""
+    from cvpr23_lfdm_torch.models.generator import shard_generator
+
+    cfg = LFAEConfig(frame_shape=64, warp_impl=warp_impl,
+                     generator=GeneratorConfig(num_bottleneck_blocks=2, skips=False))
+    jgen = build_lfae_modules(cfg)[2]
+    _, variables, _, img, flow, occ = _setup(warp_impl)
+    jvars = jax.device_get(jax.jit(lambda r: jgen.init(
+        r, jnp.asarray(img), jnp.asarray(flow), jnp.asarray(occ),
+        method=JGenerator.decode_video_with_flow))(jax.random.PRNGKey(1)))
+    assert jax.tree.map(np.shape, jvars) == jax.tree.map(np.shape, variables)
+    ref = jax.jit(lambda v, i, f, o: jgen.apply(
+        v, i, f, o, method=JGenerator.decode_video_with_flow))(
+        variables, jnp.asarray(img), jnp.asarray(flow), jnp.asarray(occ))
+    gen = Generator(num_bottleneck_blocks=2, skips=False)
+    gen.load_state_dict(from_jax_params(variables))
+    with torch.no_grad():
+        out = gen.decode_video_with_flow(
+            torch.from_numpy(img), torch.from_numpy(flow), torch.from_numpy(occ))
+    for key in ("prediction", "deformed", "bottle_neck_feat"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=1e-4, err_msg=key)
+    assert out["prediction"].shape == out["deformed"].shape == (1, 3, 64, 64, 3)
+    with_skips = Generator(num_bottleneck_blocks=2)
+    with_skips.load_state_dict(gen.state_dict())
+    with torch.no_grad():
+        assert not torch.allclose(with_skips.decode_video_with_flow(
+            torch.from_numpy(img), torch.from_numpy(flow), torch.from_numpy(occ))["prediction"],
+            out["prediction"], atol=1e-3)
+    with pytest.raises(ValueError, match="skips=False"):
+        shard_generator(gen, type("Mesh", (), {"space_size": 2})())
