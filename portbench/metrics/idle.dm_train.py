@@ -1,0 +1,7 @@
+"""Device: share of the traced steps with no device activity, %."""
+
+from portbench.harness import readers
+
+
+def read(run):
+    return readers.idle_pct(run)
