@@ -25,6 +25,7 @@ from cvpr23_lfdm_torch.models.unet3d import Unet3D, resolve_attn_impl
 from cvpr23_lfdm_torch.ops.grid import identity_flow_volume
 from cvpr23_lfdm_torch.parallel.mesh import broadcast_space
 from cvpr23_lfdm_torch.utils.device import resolve_device
+from cvpr23_lfdm_torch.utils.tracing import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -133,23 +134,24 @@ class FlowDiffusion(nn.Module):
         `ref_fea [B, h, w, C]` and (with_decode) `out_vid`/`warped_vid`
         `[B, F, H, W, 3]`, all without a graph.
         """
-        b, f = real_vid.shape[:2]
-        source_params = self.region_predictor(ref_img)
-        frames = _fold(real_vid)
-        driving_params = self.region_predictor(frames)
-        bg_params = self.bg_predictor(ref_img.repeat_interleave(f, dim=0), frames)
-        source_rep = {k: v.repeat_interleave(f, dim=0) for k, v in source_params.items()}
-        forward = self.generator.forward_video if with_decode else self.generator.forward_flow_video
-        generated = forward(ref_img, driving_params, source_rep, bg_params, frames=f)
-        out = {
-            "vid_grid": _unfold(generated["optical_flow"], b),
-            "vid_conf": _unfold(generated["occlusion_map"], b),
-            "ref_fea": generated["bottle_neck_feat"],
-        }
-        if with_decode:
-            out["out_vid"] = _unfold(generated["prediction"], b)
-            out["warped_vid"] = _unfold(generated["deformed"], b)
-        return out
+        with span("pseudo_ground_truth"):
+            b, f = real_vid.shape[:2]
+            source_params = self.region_predictor(ref_img)
+            frames = _fold(real_vid)
+            driving_params = self.region_predictor(frames)
+            bg_params = self.bg_predictor(ref_img.repeat_interleave(f, dim=0), frames)
+            source_rep = {k: v.repeat_interleave(f, dim=0) for k, v in source_params.items()}
+            forward = self.generator.forward_video if with_decode else self.generator.forward_flow_video
+            generated = forward(ref_img, driving_params, source_rep, bg_params, frames=f)
+            out = {
+                "vid_grid": _unfold(generated["optical_flow"], b),
+                "vid_conf": _unfold(generated["occlusion_map"], b),
+                "ref_fea": generated["bottle_neck_feat"],
+            }
+            if with_decode:
+                out["out_vid"] = _unfold(generated["prediction"], b)
+                out["warped_vid"] = _unfold(generated["deformed"], b)
+            return out
 
     # ------------------------------------------------------------ latent codec
 
@@ -197,25 +199,26 @@ class FlowDiffusion(nn.Module):
         the reported total, the gradient is the diffusion loss's either way.
         """
         gt = self.pseudo_ground_truth(ref_img, real_vid, with_decode=with_monitoring)
-        x_start = self.encode_latent(gt["vid_grid"], gt["vid_conf"])
-        loss, dm_aux = self.diffusion.p_losses(
-            self.denoise, x_start, gt["ref_fea"], cond, none_cond_mask,
-            t=t, noise=noise, null_mask=null_mask, generator=generator,
-        )
-        aux = {"loss": loss, **gt}
-        total = loss
-        if with_monitoring or not only_use_flow:
-            fake_grid, fake_conf = self.decode_latent(dm_aux["pred_x0"])
-            fake_out, fake_warped = self.decode_flow_video(ref_img, fake_grid, fake_conf)
-            rec_loss = (real_vid - fake_out).abs().mean()
-            rec_warp_loss = (real_vid - fake_warped).abs().mean()
-            aux.update(
-                fake_out_vid=fake_out, fake_warped_vid=fake_warped,
-                fake_vid_grid=fake_grid, fake_vid_conf=fake_conf,
-                rec_loss=rec_loss, rec_warp_loss=rec_warp_loss,
+        with span("forward"):
+            x_start = self.encode_latent(gt["vid_grid"], gt["vid_conf"])
+            loss, dm_aux = self.diffusion.p_losses(
+                self.denoise, x_start, gt["ref_fea"], cond, none_cond_mask,
+                t=t, noise=noise, null_mask=null_mask, generator=generator,
             )
-            if not only_use_flow:
-                total = loss + rec_loss + rec_warp_loss
+            aux = {"loss": loss, **gt}
+            total = loss
+            if with_monitoring or not only_use_flow:
+                fake_grid, fake_conf = self.decode_latent(dm_aux["pred_x0"])
+                fake_out, fake_warped = self.decode_flow_video(ref_img, fake_grid, fake_conf)
+                rec_loss = (real_vid - fake_out).abs().mean()
+                rec_warp_loss = (real_vid - fake_warped).abs().mean()
+                aux.update(
+                    fake_out_vid=fake_out, fake_warped_vid=fake_warped,
+                    fake_vid_grid=fake_grid, fake_vid_conf=fake_conf,
+                    rec_loss=rec_loss, rec_warp_loss=rec_warp_loss,
+                )
+                if not only_use_flow:
+                    total = loss + rec_loss + rec_warp_loss
         return total, aux
 
     # ------------------------------------------------------------ sampling
@@ -239,15 +242,19 @@ class FlowDiffusion(nn.Module):
         broadcast before the decode, so that each band decodes the same
         flow.
         """
-        fea = self.generator.compute_fea(sample_img)
-        pred = self.diffusion.sample(
-            self.denoise, fea, cond=cond, cond_scale=cond_scale,
-            num_frames=self.cfg.num_frames, image_size=self.cfg.img_size,
-            init_img=init_img, noise_seq=noise_seq, generator=generator,
-        )
-        pred = broadcast_space(pred, self.generator.sp)
-        vid_grid, vid_conf = self.decode_latent(pred)
-        out_vid, warped_vid = self.decode_flow_video(sample_img, vid_grid, vid_conf)
+        with span("sample_video"):
+            with span("encode"):
+                fea = self.generator.compute_fea(sample_img)
+            with span("sample"):
+                pred = self.diffusion.sample(
+                    self.denoise, fea, cond=cond, cond_scale=cond_scale,
+                    num_frames=self.cfg.num_frames, image_size=self.cfg.img_size,
+                    init_img=init_img, noise_seq=noise_seq, generator=generator,
+                )
+                pred = broadcast_space(pred, self.generator.sp)
+            with span("decode"):
+                vid_grid, vid_conf = self.decode_latent(pred)
+                out_vid, warped_vid = self.decode_flow_video(sample_img, vid_grid, vid_conf)
         return {
             "vid_grid": vid_grid, "vid_conf": vid_conf,
             "out_vid": out_vid, "warped_vid": warped_vid,

@@ -23,6 +23,7 @@ import torch
 
 from cvpr23_lfdm_torch.diffusion.schedule import DiffusionSchedule
 from cvpr23_lfdm_torch.ops.quantile import quantile_nonneg
+from cvpr23_lfdm_torch.utils.tracing import span
 
 
 @functools.cache
@@ -126,9 +127,10 @@ class GaussianDiffusion:
         return mean, _extract(s.posterior_log_variance_clipped, t, x_t.ndim)
 
     def _maybe_threshold(self, x0):
-        if self.use_dynamic_thres:
-            return dynamic_threshold(x0, self.dynamic_thres_percentile)
-        return x0.clamp(-1.0, 1.0)
+        with span("threshold"):
+            if self.use_dynamic_thres:
+                return dynamic_threshold(x0, self.dynamic_thres_percentile)
+            return x0.clamp(-1.0, 1.0)
 
     def _pred_to_x0_eps(self, x_t, t, pred):
         """`(x0, eps)` with x0 thresholded. For "eps" the raw prediction is
@@ -219,19 +221,20 @@ class GaussianDiffusion:
     def _guided_pred(self, denoise, x_in, t, cond, cond_scale: float, fea):
         """One batched denoiser call for classifier-free guidance; `fea` is
         `[B, 1, h, w, Cf]`."""
-        b = x_in.shape[0]
-        false_mask = torch.zeros(b, dtype=torch.bool, device=x_in.device)
-        true_mask = torch.ones(b, dtype=torch.bool, device=x_in.device)
-        if cond_scale == 0.0 or cond is None:
-            return denoise(x_in, t, cond, true_mask, fea)
-        if cond_scale == 1.0:
-            return denoise(x_in, t, cond, false_mask, fea)
-        pred2 = denoise(
-            torch.cat([x_in, x_in]), torch.cat([t, t]), torch.cat([cond, cond]),
-            torch.cat([false_mask, true_mask]), torch.cat([fea, fea]),
-        )
-        pred_cond, pred_null = pred2[:b], pred2[b:]
-        return pred_null + (pred_cond - pred_null) * cond_scale
+        with span("denoise"):
+            b = x_in.shape[0]
+            false_mask = torch.zeros(b, dtype=torch.bool, device=x_in.device)
+            true_mask = torch.ones(b, dtype=torch.bool, device=x_in.device)
+            if cond_scale == 0.0 or cond is None:
+                return denoise(x_in, t, cond, true_mask, fea)
+            if cond_scale == 1.0:
+                return denoise(x_in, t, cond, false_mask, fea)
+            pred2 = denoise(
+                torch.cat([x_in, x_in]), torch.cat([t, t]), torch.cat([cond, cond]),
+                torch.cat([false_mask, true_mask]), torch.cat([fea, fea]),
+            )
+            pred_cond, pred_null = pred2[:b], pred2[b:]
+            return pred_null + (pred_cond - pred_null) * cond_scale
 
     # ---------------------------------------------------------------- samplers
 
@@ -242,13 +245,14 @@ class GaussianDiffusion:
         img = _normal(shape, generator, device) if init_img is None else init_img
         fea_1 = fea[:, None]
         for i, t_scalar in enumerate(range(self.timesteps - 1, -1, -1)):
-            noise = _normal(shape, generator, device) if noise_seq is None else noise_seq[i]
-            t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=device)
-            pred = self._guided_pred(denoise, img, t, cond, cond_scale, fea_1)
-            x0, _ = self._pred_to_x0_eps(img, t, pred)
-            mean, log_var = self.q_posterior(x0, img, t)
-            nonzero = float(t_scalar > 0)
-            img = mean + nonzero * torch.exp(0.5 * log_var) * noise
+            with span("sampler_step"):
+                noise = _normal(shape, generator, device) if noise_seq is None else noise_seq[i]
+                t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=device)
+                pred = self._guided_pred(denoise, img, t, cond, cond_scale, fea_1)
+                x0, _ = self._pred_to_x0_eps(img, t, pred)
+                mean, log_var = self.q_posterior(x0, img, t)
+                nonzero = float(t_scalar > 0)
+                img = mean + nonzero * torch.exp(0.5 * log_var) * noise
         return img
 
     def ddim_times(self) -> tuple[list[int], list[int]]:
@@ -272,13 +276,14 @@ class GaussianDiffusion:
         sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
         coef = torch.sqrt(torch.clamp_min((1 - alpha_next) - sigma ** 2, 0.0))
         for i, (tc, tn) in enumerate(zip(t_cur, t_next)):
-            noise = _normal(shape, generator, device) if noise_seq is None else noise_seq[i]
-            t = torch.full((shape[0],), tc, dtype=torch.long, device=device)
-            pred = self._guided_pred(denoise, img, t, cond, cond_scale, fea_1)
-            x0, eps = self._pred_to_x0_eps(img, t, pred)
-            if tn == 0:
-                noise = torch.zeros_like(noise)
-            img = x0 * torch.sqrt(alpha_next[i]) + coef[i] * eps + sigma[i] * noise
+            with span("sampler_step"):
+                noise = _normal(shape, generator, device) if noise_seq is None else noise_seq[i]
+                t = torch.full((shape[0],), tc, dtype=torch.long, device=device)
+                pred = self._guided_pred(denoise, img, t, cond, cond_scale, fea_1)
+                x0, eps = self._pred_to_x0_eps(img, t, pred)
+                if tn == 0:
+                    noise = torch.zeros_like(noise)
+                img = x0 * torch.sqrt(alpha_next[i]) + coef[i] * eps + sigma[i] * noise
         return img
 
     def interpolate(self, denoise, x1, x2, fea, cond=None, cond_scale: float = 1.0,
@@ -305,12 +310,13 @@ class GaussianDiffusion:
         img = (1 - lam) * self.q_sample(x1, tb, noise1) + lam * self.q_sample(x2, tb, noise2)
         fea_1 = fea[:, None]
         for i, t_scalar in enumerate(range(t - 1, -1, -1)):
-            noise = _normal(x1.shape, generator, device).to(x1.dtype) if noise_seq is None else noise_seq[i]
-            tt = torch.full((b,), t_scalar, dtype=torch.long, device=device)
-            pred = self._guided_pred(denoise, img, tt, cond, cond_scale, fea_1)
-            x0, _ = self._pred_to_x0_eps(img, tt, pred)
-            mean, log_var = self.q_posterior(x0, img, tt)
-            img = mean + float(t_scalar > 0) * torch.exp(0.5 * log_var) * noise
+            with span("sampler_step"):
+                noise = _normal(x1.shape, generator, device).to(x1.dtype) if noise_seq is None else noise_seq[i]
+                tt = torch.full((b,), t_scalar, dtype=torch.long, device=device)
+                pred = self._guided_pred(denoise, img, tt, cond, cond_scale, fea_1)
+                x0, _ = self._pred_to_x0_eps(img, tt, pred)
+                mean, log_var = self.q_posterior(x0, img, tt)
+                img = mean + float(t_scalar > 0) * torch.exp(0.5 * log_var) * noise
         return img
 
     def sample(self, denoise, fea, cond=None, cond_scale: float = 1.0,

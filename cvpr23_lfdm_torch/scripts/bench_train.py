@@ -12,7 +12,10 @@ stage:
   * seconds per step: median of `--iters` steps after two warm-ups, each
     ended by `torch.cuda.synchronize()`;
   * the device busy ms and device launches of one step under torch.profiler,
-    and its device time by group (`utils/profiling.py::KERNEL_GROUPS`);
+    its device time by group (`utils/profiling.py::KERNEL_GROUPS`) and the
+    device ms and launches of each of the program's `lfdm::` spans
+    (`spans`: the DM step's `train_step`, `pseudo_ground_truth`, `forward`,
+    `backward`, `optimizer`; `utils/profiling.py::span_table`);
   * peak allocated memory;
   * FLOPs per step and their share of the card's peak: PyTorch's
     `FlopCounterMode` over one step (matrix products, convolutions, in the
@@ -105,13 +108,12 @@ def kernel_flops(unet):
 
 def measure(step, device, iters: int, unet=None, trace: str = "") -> dict:
     """Seconds per step, peak memory, a profiled step's device busy time,
-    launches and groups (every row into the file `trace`, if named), and
-    the FLOPs of one step."""
+    launches, groups and spans (every row into the file `trace`, if
+    named), and the FLOPs of one step."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
-    from cvpr23_lfdm_torch.utils.profiling import device_groups
-    from cvpr23_lfdm_torch.utils.profiling import profile_rows
+    from cvpr23_lfdm_torch.utils.profiling import device_groups, profile_rows, span_table
 
     on_card = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
@@ -147,9 +149,10 @@ def measure(step, device, iters: int, unet=None, trace: str = "") -> dict:
             with open(trace, "w") as f:
                 json.dump(rows, f, indent=1)
         out.update(device_busy_ms=sum(r["device_ms"] for r in rows),
-                   device_launches=sum(r["count"] for r in rows), by_group=device_groups(rows))
+                   device_launches=sum(r["count"] for r in rows), by_group=device_groups(rows),
+                   spans=span_table(prof))
     else:
-        out.update(device_busy_ms=None, device_launches=None, by_group={})
+        out.update(device_busy_ms=None, device_launches=None, by_group={}, spans={})
     return out
 
 

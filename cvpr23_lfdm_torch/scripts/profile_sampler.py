@@ -7,8 +7,10 @@ size of `--batch`, first `--iters` videos for the wall clock, then `--iters`
 videos under torch.profiler (`utils/profiling.py::profile_rows`), and
 reports per call (one `sample_video` call: B videos): the device time and device launches of each op group
 (`utils/profiling.py::KERNEL_GROUPS`: each of the port's own kernels, rows 1-9 of the kernel
-table, in a group of its own, then the library's kinds of kernel), the top
-`--top` device kernels, the wall ms and the device-busy share of it.
+table, in a group of its own, then the library's kinds of kernel), the device time and
+launches of each of the program's `lfdm::` spans (`spans`: `sample_video`, `encode`,
+`sample`, `sampler_step`, `denoise`, `threshold`, `decode`; `utils/profiling.py::span_table`),
+the top `--top` device kernels, the wall ms and the device-busy share of it.
 
 With `--device cpu` (a rehearsal on the kernels' plain versions) nothing
 runs on a device: the groups are empty and the clock is the host's.
@@ -27,7 +29,7 @@ import time
 import torch
 
 from cvpr23_lfdm_torch.scripts._common import BENCH_CKPT, add_device_arg, card_line, emit
-from cvpr23_lfdm_torch.utils.profiling import device_groups
+from cvpr23_lfdm_torch.utils.profiling import device_groups, span_table
 
 def parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -80,6 +82,7 @@ def run(cfg, args) -> list:
                "device_busy_ms_per_call": busy, "device_busy_share": busy / wall_ms,
                "device_launches_per_call": sum(r["count"] for r in device_rows) / args.iters,
                "groups": device_groups(device_rows, args.iters),
+               "spans": span_table(prof, args.iters),
                "top": [{**r, "device_ms": r["device_ms"] / args.iters, "count": r["count"] / args.iters}
                        for r in device_rows[:args.top]],
                "clock": "cuda_sync" if on_card else "host", "card": card}

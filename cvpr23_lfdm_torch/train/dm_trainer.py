@@ -46,6 +46,7 @@ from cvpr23_lfdm_torch.parallel.mesh import (
     mean_metrics, replicate, shard_variables, sharded_square_sum, sum_model_gradients,
 )
 from cvpr23_lfdm_torch.train.optim import MultistepAdam
+from cvpr23_lfdm_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -169,32 +170,35 @@ class DMTrainer:
         Returns `(state, metrics)`: `loss`, `grad_norm`, `lr` (and
         `rec_loss`, `rec_warp_loss`), loss values as 0-d tensors on the
         device, averaged over the mesh."""
-        batch = self._to_device(batch)
-        if self.mesh.size > 1:
-            d = self.cfg.diffusion
-            shape = (batch["cond"].shape[0] * self.mesh.size, d.num_frames, d.img_size, d.img_size, 3)
-            draws = self.model.diffusion.training_draws(shape, True, rng, self.device, t, noise, null_mask)
-            t, noise, null_mask = (local_rows(v, self.mesh) for v in draws)
-        self.optimizer.zero_grad()
-        loss, aux = self.model.loss(
-            batch["ref_img"], batch["real_vid"], batch["cond"], batch.get("none_cond_mask"),
-            with_monitoring=with_monitoring, only_use_flow=self.cfg.dm_train.only_use_flow,
-            t=t, noise=noise, null_mask=null_mask, generator=rng,
-        )
-        aux["loss"].backward()
-        sharded, partial, whole = tp_parameters(self.model.unet)
-        sum_model_gradients(partial, self.mesh)
-        mean_gradients(self.model.unet.parameters(), self.mesh)
-        grad_norm = torch.sqrt(
-            sharded_square_sum([p.grad for p in sharded if p.grad is not None], self.mesh)
-            + sum(torch.linalg.vector_norm(p.grad.float()).square()
-                  for p in partial + whole if p.grad is not None))
-        lr = self.optimizer.step(state.step)
-        metrics = {"loss": aux["loss"].detach(), "grad_norm": grad_norm, "lr": lr}
-        if with_monitoring:
-            metrics["rec_loss"] = aux["rec_loss"]
-            metrics["rec_warp_loss"] = aux["rec_warp_loss"]
-        metrics = mean_metrics(metrics, self.mesh, ("loss", "rec_loss", "rec_warp_loss"))
+        with span("train_step", state.step):
+            batch = self._to_device(batch)
+            if self.mesh.size > 1:
+                d = self.cfg.diffusion
+                shape = (batch["cond"].shape[0] * self.mesh.size, d.num_frames, d.img_size, d.img_size, 3)
+                draws = self.model.diffusion.training_draws(shape, True, rng, self.device, t, noise, null_mask)
+                t, noise, null_mask = (local_rows(v, self.mesh) for v in draws)
+            self.optimizer.zero_grad()
+            loss, aux = self.model.loss(
+                batch["ref_img"], batch["real_vid"], batch["cond"], batch.get("none_cond_mask"),
+                with_monitoring=with_monitoring, only_use_flow=self.cfg.dm_train.only_use_flow,
+                t=t, noise=noise, null_mask=null_mask, generator=rng,
+            )
+            with span("backward"):
+                aux["loss"].backward()
+            with span("optimizer"):
+                sharded, partial, whole = tp_parameters(self.model.unet)
+                sum_model_gradients(partial, self.mesh)
+                mean_gradients(self.model.unet.parameters(), self.mesh)
+                grad_norm = torch.sqrt(
+                    sharded_square_sum([p.grad for p in sharded if p.grad is not None], self.mesh)
+                    + sum(torch.linalg.vector_norm(p.grad.float()).square()
+                          for p in partial + whole if p.grad is not None))
+                lr = self.optimizer.step(state.step)
+            metrics = {"loss": aux["loss"].detach(), "grad_norm": grad_norm, "lr": lr}
+            if with_monitoring:
+                metrics["rec_loss"] = aux["rec_loss"]
+                metrics["rec_warp_loss"] = aux["rec_warp_loss"]
+            metrics = mean_metrics(metrics, self.mesh, ("loss", "rec_loss", "rec_warp_loss"))
         return DMTrainState(step=state.step + 1), metrics
 
     # ------------------------------------------------------------------ sample

@@ -1,11 +1,9 @@
-"""Logging: stdout tee + running meters (a copy of
-`cvpr23_lfdm_tpu/utils/logging.py`; reference misc.py:83-93,
-LFAE/train.py:16-33 — the AverageMeter duplicated in every script)."""
+"""Logging: stdout tee (a copy of the `Logger` of
+`cvpr23_lfdm_tpu/utils/logging.py`; reference misc.py:83-93)."""
 
 from __future__ import annotations
 
 import sys
-import time
 
 
 class Logger:
@@ -24,35 +22,3 @@ class Logger:
         self.terminal.flush()
         self.file.flush()
 
-
-class AverageMeter:
-    """Running average (LFAE/train.py:16-33)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.val = 0.0
-        self.avg = 0.0
-        self.sum = 0.0
-        self.count = 0
-
-    def update(self, val: float, n: int = 1):
-        self.val = val
-        self.sum += val * n
-        self.count += n
-        self.avg = self.sum / max(self.count, 1)
-
-
-class Timer:
-    """Wall-clock section timer for batch/data time meters
-    (LFAE/train.py:90-103)."""
-
-    def __init__(self):
-        self.t = time.perf_counter()
-
-    def lap(self) -> float:
-        now = time.perf_counter()
-        dt = now - self.t
-        self.t = now
-        return dt

@@ -8,14 +8,19 @@ reads the device time alone from torch.profiler. The L2 cache is warm:
 every repetition sees the same tensors. `KERNEL_GROUPS` / `device_groups`
 are the one grouping of a profile's device kernels (each of the port's own
 kernels in a group of its own) that the scripts and `chip_smoke.py` read.
+`span_table` splits a profile's device time by the program's `lfdm::`
+spans (`utils/tracing.py`).
 """
 
 from __future__ import annotations
 
+import bisect
 import time
 
 import numpy as np
 import torch
+
+from cvpr23_lfdm_torch.utils.tracing import ANY_THREAD, PREFIX
 
 
 def time_fn(fn, iters: int = 20, warmup: int = 3, device=None) -> dict:
@@ -137,3 +142,43 @@ def device_ms(fn, reps: int = 10, launches: int | None = None, by: tuple = ()):
             return {"total": total, **{k: sum(r["device_ms"] for r in rows if k in r["name"]) / reps
                                        for k in by}}
     return None
+
+
+def span_table(prof, per: int = 1) -> dict:
+    """Device ms and device launches per `lfdm::` span of a torch.profiler
+    run that recorded host events, over `per` (calls, steps), with the
+    spans' own count over `per` (`calls`). A device activity counts for a
+    span when the runtime call that launched it (its CUDA correlation id)
+    ran inside a span of that name on the span's thread, or on any thread
+    for the spans of `tracing.ANY_THREAD` (`backward`: autograd launches
+    from its device thread). A parent's reading includes what its children
+    launched on its thread."""
+    from torch.autograd import DeviceType
+
+    runtime, spans, device = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            device.append(e)
+        elif e.name().startswith(PREFIX):
+            spans.setdefault(e.name().removeprefix(PREFIX), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id()))
+        elif e.name().startswith("cu"):  # a CUDA runtime or driver call
+            runtime[e.correlation_id()] = (e.start_ns(), e.start_thread_id())
+    table = {}
+    for name, ranges in sorted(spans.items()):
+        key = (lambda thread: None) if name in ANY_THREAD else (lambda thread: thread)  # noqa: E731
+        by_thread = {}
+        for a, b, thread in sorted(ranges):
+            by_thread.setdefault(key(thread), []).append((a, b))
+        ms = launches = 0
+        for d in device:
+            launch = runtime.get(d.correlation_id())
+            if launch is None:
+                continue
+            inside = by_thread.get(key(launch[1]), ())
+            i = bisect.bisect_right(inside, (launch[0], float("inf"))) - 1
+            if i >= 0 and launch[0] < inside[i][1]:
+                ms += d.duration_ns() / 1e6
+                launches += 1
+        table[name] = {"device_ms": ms / per, "launches": launches / per, "calls": len(ranges) / per}
+    return table

@@ -95,7 +95,7 @@ def test_bench_train_records():
     dm, lfae = bench_train.run(cfg, args)
     common = {"metric", "value", "step_s", "peak_mem_gb", "clock", "flops_counted", "flops_kernels",
               "step_tflop", "achieved_tflops", "device_busy_ms", "device_launches", "by_group",
-              "batch_size", "peak_tflops", "mfu", "card"}
+              "spans", "batch_size", "peak_tflops", "mfu", "card"}
     assert set(dm) == common | {"frames", "attn_impl", "lfae_dtype", "weights"}
     assert set(lfae) == common | {"dtype", "tf32"}
     assert dm["metric"] == "dm_train_step_seconds" and lfae["metric"] == "lfae_train_step_seconds"
@@ -103,6 +103,7 @@ def test_bench_train_records():
     for rec in (dm, lfae):
         assert rec["value"] > 0 and rec["flops_counted"] > 0 and rec["flops_kernels"] == 0
         assert rec["mfu"] is None and rec["achieved_tflops"] is None and rec["device_busy_ms"] is None
+        assert rec["spans"] == {}  # no profile off the card
     assert (dm["peak_tflops"], lfae["peak_tflops"]) == (989.0, 67.0)
 
 
@@ -131,9 +132,14 @@ def test_profile_sampler_records_and_groups():
     (rec,) = profile_sampler.run(tiny_cfg(), args)
     assert set(rec) == {"batch", "weights", "iters", "wall_ms_per_call", "frames_per_s",
                         "device_busy_ms_per_call", "device_busy_share", "device_launches_per_call",
-                        "groups", "top", "clock", "card"}
+                        "groups", "spans", "top", "clock", "card"}
     assert rec["batch"] == 2 and rec["wall_ms_per_call"] > 0 and rec["clock"] == "host"
     assert rec["groups"] == {} and rec["device_busy_ms_per_call"] == 0.0  # nothing ran on a device
+    steps = 10  # the serving form's DDIM-10 (`bench_batch_sweep.serving_model`)
+    assert {name: row["calls"] for name, row in rec["spans"].items()} == {
+        "sample_video": 1, "encode": 1, "sample": 1, "decode": 1,
+        "sampler_step": steps, "denoise": steps, "threshold": steps}
+    assert all(row["device_ms"] == row["launches"] == 0 for row in rec["spans"].values())
 
 
 # the device names of the port's kernels (csrc/*.cu) as the profiler shows them

@@ -202,7 +202,8 @@ def test_port_imports_no_jax():
                 "utils/msgpack.py", "scripts/train_dm.py", "scripts/train_lfae.py",
                 "scripts/make_bench_ckpt.py", "scripts/preprocess.py", "parallel/distributed.py",
                 "parallel/mesh.py", "scripts/bench_attention.py", "scripts/bench_attn_fused.py",
-                "scripts/bench_batch_sweep.py", "scripts/bench_train.py", "scripts/profile_sampler.py"):
+                "scripts/bench_batch_sweep.py", "scripts/bench_train.py", "scripts/profile_sampler.py",
+                "utils/tracing.py"):
         assert os.path.join("cvpr23_lfdm_torch", new) in walked, new
     for path in files:
         with open(path) as f:
