@@ -39,8 +39,10 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               four B=1 serving shapes and a focus case (library: SDPA on
               pre-permuted q, k, v; device times alone of both; run twice
               for bit-identity), the fused GroupNorm+FiLM+SiLU at every
-              `Block` shape of a serving eval and at B=8 (32², 64), with
-              the FiLM pair as the UNet passes it and without, run twice
+              `Block` shape of a serving eval, at B=8 (32², 64) and at
+              every `Block` shape at B=32 (the benchmark's serving batch),
+              with the FiLM pair as the UNet passes it and without and the
+              conv bias as a Block passes it (`pre_bias` in bf16), run twice
               for bit-identity, with its device time alone and its device
               launches per call (gated: one; no single library call), and the
               fused warp+blend under both of its names for the three blends
@@ -58,10 +60,11 @@ under /usr/local/cuda or on PATH). Phases, each printing JSON lines:
               (128² frames, 40 frames, DDIM-10, B=1, cond_scale 1, bf16
               compute): output shapes, finite values, `out_vid` in [0, 1],
               the kernel launch counts of one video (each counter set to 0
-              just before, read just after), and frames/s over timed runs.
+              just before, read just after; row 7 once per `Block` of each
+              eval: 400), and frames/s over timed runs.
 4. parity   — the same path in fp32 with the kernels against the plain
-              versions on the card (a test hook swaps the ops for this run
-              only), under the same injected noise; and an fp32 run with
+              versions on the card (a test hook swaps the ops, row 7's
+              among them, for this run only), under the same injected noise; and an fp32 run with
               the kernels against the JAX package's golden
               (`tests/golden/torch_port_mug_ddim10.npz`, 8 frames).
 
@@ -207,8 +210,8 @@ process (PERF.md §7); phases 17-27 gate on launch counters only.
 18. cli demo — `python -m cvpr23_lfdm_torch.scripts.demo --bert-path ...`
               in a subprocess (bench checkpoint, bundled PNG, 7 classes;
               gated: exit 0, 7 GIF89a files); `demo.run` in process for
-              `DEMO_CLASSES` (gated: 100 / 80 / 3 launches of rows 1-3 per
-              class video, `out_vid` equal to a direct `sample_video` with
+              `DEMO_CLASSES` (gated: 100 / 80 / 3 / 400 launches of rows 1-3
+              and 7 per class video, `out_vid` equal to a direct `sample_video` with
               the same generator); seconds per class video and per direct
               `sample_video`.
 19. cli test_dm — `test_dm.main(["--synthetic", "--num-videos", "4",
@@ -250,11 +253,11 @@ process (PERF.md §7); phases 17-27 gate on launch counters only.
               loader, 6 threads, as the CLI).
 25. cli make_bench_ckpt — `make_bench_ckpt.main` in this process, 2 + 2
               steps, one probe video, `--out` in the scratch directory
-              (gated: every file written, rows 1 / 2 / 3 at 100 / 80 / 3 per
-              probe video plus row 3 once per DM step, rows 4 / 5 at 10 per
-              DM step); bytes and seconds of the save; then
+              (gated: every file written, rows 1 / 2 / 3 / 7 at 100 / 80 / 3 /
+              400 per probe video plus row 3 once per DM step, rows 4 / 5 at
+              10 per DM step); bytes and seconds of the save; then
               `apply_bench_ckpt` of the new directory and one `pallas3`
-              serving video on it (gated: finite, 100 / 80 / 3).
+              serving video on it (gated: finite, 100 / 80 / 3 / 400).
 26. loader grain — `GrainLoader` (8 worker processes) on the DM dataset,
               B=5: seconds per batch against the thread loader's (16
               threads); `train_dm --loader grain` for 3 steps, then resumed
@@ -291,7 +294,7 @@ process (PERF.md §7); phases 17-27 gate on launch counters only.
               and fp32, unit and `branch` inputs, the same bits twice; bf16
               timed: the `kernels` line's `_partial` entries), rows 4-5 at
               4 heads (B=2), row 7 on a channel shard (C / 2, 4 groups,
-              FiLM as the tp UNet passes it). Then two rank subprocesses
+              FiLM and the conv bias as the tp UNet passes them). Then two rank subprocesses
               sharing cuda:0 over gloo, a `data` x `model` mesh of 1 x 2,
               the MUG config at full width: the bf16 `pallas3` video at B=1
               (gated: finite, 100 / 80 / 3 launches of rows 1 / 2 / 3 on
@@ -371,8 +374,10 @@ TRAIN_BATCH = 5
 # moves add over the pixels like a random walk: its atol is per sqrt(HW)
 DBIAS_TOL = {"float32": {"atol": 2e-3, "rtol": 1e-3}, "bfloat16": {"atol": 1e-2, "rtol": 2e-2}}
 TRAIN_PARITY_TOL = {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_max_abs_rel": 2e-3}
-# the fused GroupNorm+FiLM+SiLU's Block shapes per UNet eval and its 40 Blocks:
-# `cvpr23_lfdm_torch/scripts/bench_norm.py::NORM_SHAPES`, `BLOCKS_PER_EVAL`
+# the fused GroupNorm+FiLM+SiLU's Block shapes per UNet eval, and so its calls
+# per eval (`norm_per_eval`): `cvpr23_lfdm_torch/scripts/bench_norm.py::NORM_SHAPES`
+# row 7 also at the benchmark's serving batch (`portbench`'s `mug-serve-b32`)
+NORM_CELL_BATCH = 32
 # warp+blend checks: [B, H, W, C]; one call of each blend at each shape
 BLEND_SHAPES = ((8, 32, 32, 256), (8, 128, 128, 67))
 ABLATE_SHAPE = (8, 40, 1024, 64)
@@ -702,19 +707,21 @@ def plain_ops():
     """Test hook for the parity phases: route the ops to their plain
     versions for the duration of one run (the port itself has no switch)."""
     from cvpr23_lfdm_torch.ops import attention as A
+    from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.ops import warp as W
 
     saved = (A.fused_temporal_layer, A.fused_spatial_linear_layer, W.warp_video,
-             A.headpacked_temporal_attention)
+             A.headpacked_temporal_attention, N.groupnorm_film_silu)
     A.fused_temporal_layer = A.fused_temporal_layer_plain
     A.fused_spatial_linear_layer = A.fused_spatial_linear_layer_plain
     W.warp_video = W.warp_video_plain
     A.headpacked_temporal_attention = A.headpacked_temporal_attention_plain
+    N.groupnorm_film_silu = N.groupnorm_film_silu_plain
     try:
         yield
     finally:
         (A.fused_temporal_layer, A.fused_spatial_linear_layer, W.warp_video,
-         A.headpacked_temporal_attention) = saved
+         A.headpacked_temporal_attention, N.groupnorm_film_silu) = saved
 
 
 NEW_KERNELS = ("packed_temporal_attention", "groupnorm_film_silu", "warp_onehot", "warp_gather",
@@ -732,6 +739,14 @@ def reset_counters() -> None:
     from cvpr23_lfdm_torch import ops
 
     ops.reset_counters()
+
+
+def norm_per_eval() -> int:
+    """Fused-norm launches of one serving UNet eval: one per `Block`, as
+    the shape table counts them."""
+    from cvpr23_lfdm_torch.scripts.bench_norm import NORM_SHAPES
+
+    return sum(sum(counts) for counts in NORM_SHAPES.values())
 
 
 def serving_model(dtype: str, frames: int = F_FRAMES, impl: str = "pallas3"):
@@ -780,9 +795,10 @@ def run_serving(failures: list, timed_runs: int = 3, impl: str = "pallas3",
     out = sample()
     torch.cuda.synchronize()
     launches = counters()
+    # serving builds every Block fused: one norm launch per Block of each eval
     want = {"fused_temporal_layer": 10 * DDIM_STEPS, "fused_spatial_linear_layer": 8 * DDIM_STEPS,
             "warp_video": 3, "headpacked_attention_fwd": 0, "headpacked_attention_bwd": 0,
-            **dict.fromkeys(NEW_KERNELS, 0)}
+            **dict.fromkeys(NEW_KERNELS, 0), "groupnorm_film_silu": norm_per_eval() * DDIM_STEPS}
     if impl != "pallas3":  # the other forms launch no fused layer
         want.update(fused_temporal_layer=0, fused_spatial_linear_layer=0,
                     packed_temporal_attention=10 * DDIM_STEPS if impl == "pallas" else 0)
@@ -1869,6 +1885,7 @@ def check_new_kernels(failures: list) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from cvpr23_lfdm_torch.models.blocks import split_bias
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.ops import warp as W
@@ -1926,17 +1943,21 @@ def check_new_kernels(failures: list) -> dict:
 
             # ---- row 7: fused norm at every Block shape of a serving eval, FiLM and none;
             # then B=8 at (32², 64), whose 42 MB do not fit the blocks' shared memory
-            # (read twice; off the B=1 eval, a line of its own)
+            # (read twice), and every Block shape with FiLM at the benchmark's serving
+            # batch (off the B=1 eval, lines of their own). The conv bias as a Block
+            # passes it: after the product in bf16 (`pre_bias`), inside it in fp32
             cases = [(1, h, c, film, n_eval) for (h, c), counts in NORM_SHAPES.items()
                      for film, n_eval in zip((True, False), counts)]
-            for b, h, c, film, n_eval in cases + [(8, 32, 64, True, 0)]:
+            cases += [(8, 32, 64, True, 0)] + [(NORM_CELL_BATCH, h, c, True, 0) for (h, c) in NORM_SHAPES]
+            for b, h, c, film, n_eval in cases:
                 x = (1.5 * randn(b, f, h, h, c) + 0.3).to(dtype)
                 gamma, beta = 1 + 0.3 * randn(c), 0.2 * randn(c)
                 # the FiLM pair as the UNet passes it: halves of one [B, 1, 1, 1, 2C] tensor
                 ss = randn(b, 1, 1, 1, 2 * c).to(dtype).chunk(2, dim=-1) if film else ()
-                call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss)
+                pre = {"pre_bias": split_bias(0.5 * randn(c), dtype)[1]}
+                call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss, **pre)
                 out = call()
-                res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss), TOL[dname])
+                res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss, **pre), TOL[dname])
                 same = bool(torch.equal(out, call()))
                 dev_ms, launches, other = device_reading(call)
                 res["ok"] = res["ok"] and same and one_launch(launches, other)
@@ -1944,13 +1965,13 @@ def check_new_kernels(failures: list) -> dict:
                 if timed:
                     times = {"kernel_ms": median_ms(call),
                              "plain_ms": median_ms(lambda: N.groupnorm_film_silu_plain(
-                                 x, gamma, beta, *ss), reps=5),
+                                 x, gamma, beta, *ss, **pre), reps=5),
                              "library_ms": None, "kernel_device_ms": dev_ms, "library_device_ms": None}
                 nbytes = 2 * x.numel() * esz + 2 * c * 4 + 2 * b * c * film * esz
                 _record(totals, failures, "groupnorm_film_silu", [b, f, h, h, c], dname, res,
                         n_eval, times, nbytes, 10 * x.numel(), FP32_FLOPS,
-                        film=film, bit_identical_twice=same, device_launches_per_call=launches,
-                        other_device_launches_per_call=other)
+                        film=film, pre_bias=pre["pre_bias"] is not None, bit_identical_twice=same,
+                        device_launches_per_call=launches, other_device_launches_per_call=other)
                 del x, out
 
             # ---- rows 8+9: warp + blend, both names, three blends, two shapes
@@ -2028,10 +2049,11 @@ def run_fused_norm(failures: list) -> dict:
 
     from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.scripts import bench_unet
-    from cvpr23_lfdm_torch.scripts.bench_norm import BLOCKS_PER_EVAL, device_reading, one_launch
+    from cvpr23_lfdm_torch.scripts.bench_norm import device_reading, one_launch
 
     dev = torch.device("cuda")
     nets = {fused: bench_unet.make_unet("pallas3", fused, "bfloat16", dev) for fused in (False, True)}
+    blocks = norm_per_eval()
     launches = None
     for b in FUSED_NORM_BATCHES:
         inputs = bench_unet.make_inputs(nets[True], b, F_FRAMES, 32, dev)
@@ -2066,11 +2088,11 @@ def run_fused_norm(failures: list) -> dict:
         tol = FUSED_NORM_TOL
         checks = {
             "finite": torch_isfinite(out_fused) and torch_isfinite(out_plain),
-            "launches_ok": counted["groupnorm_film_silu"] == BLOCKS_PER_EVAL
-            and fused["launches_per_eval"]["groupnorm_film_silu"] == BLOCKS_PER_EVAL
+            "launches_ok": counted["groupnorm_film_silu"] == blocks
+            and fused["launches_per_eval"]["groupnorm_film_silu"] == blocks
             and plain["launches_per_eval"]["groupnorm_film_silu"] == 0
             and counted["fused_temporal_layer"] == 10 and counted["fused_spatial_linear_layer"] == 8
-            and one_launch(norm_launches, other, BLOCKS_PER_EVAL),
+            and one_launch(norm_launches, other, blocks),
             "norm_device_time_read": bool(gn_device_ms),
             "close": float(diff.max()) <= tol["max_rel"] * scale
             and float(diff.mean()) <= tol["mean_rel"] * scale,
@@ -2498,7 +2520,7 @@ def run_cli_demo(failures: list, work: str, bert: str) -> None:
         launches = counters()
         n = len(DEMO_CLASSES)
         want = {"fused_temporal_layer": 10 * DDIM_STEPS * n, "fused_spatial_linear_layer": 8 * DDIM_STEPS * n,
-                "warp_video": 3 * n}
+                "warp_video": 3 * n, "groupnorm_film_silu": norm_per_eval() * DDIM_STEPS * n}
         _, model = demo.build_model(cfg, args)
         ref = torch.from_numpy(demo.reference_image(args, cfg.lfae.frame_shape))[None].cuda()
         table = load_text_embedder(args)
@@ -2930,7 +2952,8 @@ def run_cli_make_bench_ckpt(failures: list, work: str) -> None:
     want = {"fused_temporal_layer": TEMPORAL_PER_EVAL * DDIM_STEPS,
             "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3 + dm_steps,
             "headpacked_attention_fwd": HEADPACKED_PER_EVAL * dm_steps,
-            "headpacked_attention_bwd": HEADPACKED_PER_EVAL * dm_steps}
+            "headpacked_attention_bwd": HEADPACKED_PER_EVAL * dm_steps,
+            "groupnorm_film_silu": norm_per_eval() * DDIM_STEPS}  # the probe's serving video
     files = listing(out)
     need = [".lock", "cond.npy", "fit_report.json", "generator.msgpack", "meta.json", "ref.npy", "unet.msgpack"]
     report = res["report"]
@@ -2959,7 +2982,8 @@ def run_cli_make_bench_ckpt(failures: list, work: str) -> None:
         video, secs = timed(lambda: model.sample_video(ref, cond, 1.0, generator=gen))
         launches = counters()
         want = {"fused_temporal_layer": TEMPORAL_PER_EVAL * DDIM_STEPS,
-                "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3}
+                "fused_spatial_linear_layer": LINEAR_PER_EVAL * DDIM_STEPS, "warp_video": 3,
+                "groupnorm_film_silu": norm_per_eval() * DDIM_STEPS}
         line = {"phase": "cli make_bench_ckpt", "how": "apply_bench_ckpt of the new directory, one pallas3 video",
                 "objective": meta["objective"], "shape": list(video["out_vid"].shape),
                 "finite": all(torch_isfinite(v) for v in video.values()), "launches": {k: launches[k] for k in want},
@@ -3451,6 +3475,7 @@ def check_tp_kernels(failures: list) -> dict:
     heads (B=2) and row 7 on a channel shard (C / 2, 4 groups)."""
     import torch
 
+    from cvpr23_lfdm_torch.models.blocks import split_bias
     from cvpr23_lfdm_torch.ops import attention as A
     from cvpr23_lfdm_torch.ops import norm as N
     from cvpr23_lfdm_torch.scripts._common import LINEAR_SHAPES, TEMPORAL_SHAPES
@@ -3551,18 +3576,21 @@ def check_tp_kernels(failures: list) -> dict:
             del qkv, do, outs
 
         # row 7 on a channel shard: C / 2 channels in 4 whole groups, the FiLM halves of the
-        # rank's [B, 1, 1, 1, 2 (C / 2)] mlp output
+        # rank's [B, 1, 1, 1, 2 (C / 2)] mlp output, the rank's half of the conv bias
+        # (after the product in bf16, as `split_bias` gives it; none in fp32)
         for (hh, c), _ in NORM_SHAPES.items():
             cs = c // TP
             x = (1.5 * randn(1, f, hh, hh, cs) + 0.3).to(dtype)
             gamma, beta = (1 + 0.3 * randn(c)).narrow(0, cs, cs), (0.2 * randn(c)).narrow(0, cs, cs)
             ss = randn(1, 1, 1, 1, 2 * cs).to(dtype).chunk(2, dim=-1)
-            call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss, groups=8 // TP)
+            after = split_bias(0.5 * randn(c), dtype)[1]
+            kw = {"groups": 8 // TP, "pre_bias": None if after is None else after.narrow(0, cs, cs)}
+            call = lambda: N.groupnorm_film_silu(x, gamma, beta, *ss, **kw)
             out = call()
-            res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss, groups=8 // TP), TOL[dname])
+            res = compare(out, N.groupnorm_film_silu_plain(x, gamma, beta, *ss, **kw), TOL[dname])
             res["ok"] = res["ok"] and bool(torch.equal(out, call()))
             emit({"phase": "kernel", "name": "groupnorm_film_silu", "shape": [1, f, hh, hh, cs, "channel shard"],
-                  "dtype": dname, "groups": 8 // TP, **res})
+                  "dtype": dname, "groups": 8 // TP, "pre_bias": after is not None, **res})
             if not (res["ok"] and res["finite"]):
                 failures.append(f"groupnorm_film_silu channel shard {hh} {cs} {dname}")
             del x, out

@@ -1,9 +1,12 @@
-// Fused GroupNorm + FiLM + SiLU of the UNet's Block (forward only):
-//   y = silu(GroupNorm_G(x) * (scale + 1) + shift)
+// Fused conv bias + GroupNorm + FiLM + SiLU of the UNet's Block (forward only):
+//   v = round_T(x + pre_bias)
+//   y = silu(GroupNorm_G(v) * (scale + 1) + shift)
 // with fp32 statistics per (batch, group) over (F, H, W, C/G), var =
-// E[x^2] - mean^2 (no clamp, as the Pallas kernel), gamma, beta and the
+// max(E[v^2] - mean^2, 0) (clamped as flax's GroupNorm), gamma, beta and the
 // optional FiLM [B, C] folded into one multiply and one add per channel, and
-// the result in x's dtype.
+// the result in x's dtype. The optional per-channel pre_bias is the conv's
+// bias that a bf16 Block adds after the rounded product (flax's order,
+// models/blocks.py::split_bias): v is rounded to T as that add rounds it.
 //
 // Replaces the Pallas TPU kernel cvpr23_lfdm_tpu/ops/norm_pallas.py::
 // groupnorm_film_silu (_kernel). The plain version this is held against is
@@ -18,7 +21,10 @@
 //      cp.async; as much as fits, ~110 KB a block, two blocks an SM: ~29 MB
 //      over the card), then sums each of its columns in fp32 (a thread owns
 //      fixed columns of 16 bytes, so its channels never change) and folds
-//      the column sums per group in a fixed order, one warp per group;
+//      the column sums per group in a fixed order, one warp per group. With
+//      a pre_bias (each thread's channels loaded into registers beside the
+//      rows), the sum reads v and writes it back over the held x, so that
+//      step 4 streams the held rows as it does without one;
 //   2. writes its (sum, sum of squares) per group to `partial` (a group's
 //      partials side by side, so that step 3 reads them coalesced: every
 //      block reads all of its batch entry's) and meets the other blocks at
@@ -37,9 +43,10 @@
 // then owns up to four columns. The wrapper chooses the path and the grid
 // (ops/norm.py::norm_plan).
 //
-// Layouts: x, y [B, N, C] (N = F*H*W rows, channels last); gamma, beta [C]
-// and scale, shift [B, C] in fp32 or bf16 at any strides (a FiLM half of the
-// UNet's [B, 1, 1, 1, 2C] goes in as it is); partial [B, G, blocks, 2] fp32.
+// Layouts: x, y [B, N, C] (N = F*H*W rows, channels last); gamma, beta,
+// pre_bias [C] and scale, shift [B, C] in fp32 or bf16 at any strides (a
+// FiLM half of the UNet's [B, 1, 1, 1, 2C] goes in as it is); partial
+// [B, G, blocks, 2] fp32.
 
 #include <cooperative_groups.h>
 
@@ -87,11 +94,12 @@ __host__ __device__ inline int scratch_bytes(int C, int G, int VEC) {
   return (4 * (2 * red + 2 * G + 4 * C) + 15) / 16 * 16;
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BIAS>
 __global__ void __launch_bounds__(kNormThreads, 2)
 groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gamma, Table beta,
-                           Table scale, Table shift, float* __restrict__ partial, long long N,
-                           int C, int G, int nb, long long rows, long long hold_rows, float eps) {
+                           Table scale, Table shift, Table pre_bias, float* __restrict__ partial,
+                           long long N, int C, int G, int nb, long long rows, long long hold_rows,
+                           float eps) {
   using U = Unit<T, VEC>;
   constexpr int KC = VEC == 1 ? kMaxCols : 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -123,6 +131,34 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
       for (int k = 0; k < 4; ++k) tab[k * C + c] = v[k];
     }
   };
+  // thread -> (row lane, first column); its columns col0 + j * kNormThreads
+  const int lrow = tid / cols, col0 = tid - lrow * cols;
+  const bool active = lrow < rows_par;
+  // the conv bias of the thread's channels
+  float pb[KC][VEC];
+  auto load_pb = [&] {
+    if constexpr (std::is_same_v<T, __nv_bfloat16> && VEC == 8) {
+      // a bf16 bias at unit stride (as a bf16 Block passes it): the thread's
+      // 8 channels in one 16-byte load
+      if (pre_bias.bf16 && pre_bias.sc == 1 && reinterpret_cast<uintptr_t>(pre_bias.p) % 16 == 0) {
+        U v;
+        v.u = static_cast<const uint4*>(pre_bias.p)[col0];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) pb[0][i] = to_f<T>(v.e[i]);
+        return;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const int c0 = (col0 + j * kNormThreads) * VEC;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) pb[j][i] = c0 + i < C ? pre_bias.at(0, c0 + i) : 0.f;
+    }
+  };
+  if constexpr (BIAS) {
+    if (active) load_pb();  // in flight beside the rows
+  }
+
   // 1. the rows that fit -> shared memory
   if constexpr (VEC > 1) {
     const int n16 = (int)((long long)held * C * sizeof(T) / 16);
@@ -139,22 +175,25 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
   }
   __syncthreads();
 
-  // thread -> (row lane, first column); its columns col0 + j * kNormThreads
-  const int lrow = tid / cols, col0 = tid - lrow * cols;
-  const bool active = lrow < rows_par;
   float s[KC], ss[KC];
 #pragma unroll
   for (int j = 0; j < KC; ++j) s[j] = ss[j] = 0.f;
-  auto sums = [&](const T* src, int r_begin, int r_end) {
+  // `keep`: the rows are the held chunk, which takes v in place of x
+  auto sums = [&](const T* src, int r_begin, int r_end, bool keep) {
 #pragma unroll 4
     for (int r = r_begin; r < r_end; r += rows_par) {
-      const U* row = reinterpret_cast<const U*>(src + (long long)r * C);
+      U* row = reinterpret_cast<U*>(const_cast<T*>(src) + (long long)r * C);
 #pragma unroll
       for (int j = 0; j < KC; ++j) {
         const int col = col0 + j * kNormThreads;
         if (col < CV) {
           U v;
           v.u = row[col].u;
+          if constexpr (BIAS) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) v.e[i] = from_f<T>(to_f<T>(v.e[i]) + pb[j][i]);
+            if (keep) row[col].u = v.u;
+          }
           float a = 0.f, aa = 0.f;
 #pragma unroll
           for (int i = 0; i < VEC; ++i) {
@@ -171,8 +210,8 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
   // the first row of this lane at or after `from`
   auto first = [&](int from) { return from + ((lrow - from) % rows_par + rows_par) % rows_par; };
   if (active) {
-    sums(sx, lrow, held);
-    sums(xb, first(held), nrows);
+    sums(sx, lrow, held, true);
+    sums(xb, first(held), nrows, false);
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       const int col = col0 + j * kNormThreads;
@@ -215,7 +254,7 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
     if (lane == 0) {
       const float cnt = (float)(N * (C / G));
       const float mean = a / cnt;
-      const float var = aa / cnt - mean * mean;
+      const float var = fmaxf(aa / cnt - mean * mean, 0.f);
       mean_g[g] = mean;
       inv_g[g] = rsqrtf(var + eps);
     }
@@ -256,7 +295,8 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
       add[j][0] = c0 < C ? tab[C + c0] : 0.f;
     }
   }
-  auto apply = [&](const T* src, int r_begin, int r_end) {
+  // `bias`: the rows are x from device memory, to which pre_bias is added again
+  auto apply = [&](const T* src, int r_begin, int r_end, bool bias) {
 #pragma unroll 4
     for (int r = r_begin; r < r_end; r += rows_par) {
       const U* row = reinterpret_cast<const U*>(src + (long long)r * C);
@@ -267,6 +307,12 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
         if (col < CV) {
           U v;
           v.u = row[col].u;
+          if constexpr (BIAS) {
+            if (bias) {
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) v.e[i] = from_f<T>(to_f<T>(v.e[i]) + pb[j][i]);
+            }
+          }
 #pragma unroll
           for (int i = 0; i < VEC; ++i) {
             const float t = to_f<T>(v.e[i]) * mul[j][i] + add[j][i];
@@ -277,23 +323,27 @@ groupnorm_film_silu_kernel(const T* __restrict__ x, T* __restrict__ y, Table gam
       }
     }
   };
-  apply(sx, lrow, held);
-  apply(xb, first(held), nrows);
+  apply(sx, lrow, held, false);
+  if constexpr (BIAS) {
+    if (held < nrows) load_pb();
+  }
+  apply(xb, first(held), nrows, true);
 }
 
 template <typename T, int VEC>
-const void* kernel_ptr() {
-  return reinterpret_cast<const void*>(&groupnorm_film_silu_kernel<T, VEC>);
+const void* kernel_ptr(int bias) {
+  return bias ? reinterpret_cast<const void*>(&groupnorm_film_silu_kernel<T, VEC, true>)
+              : reinterpret_cast<const void*>(&groupnorm_film_silu_kernel<T, VEC, false>);
 }
 
-// The kernel of (dtype, path), its dynamic shared memory allowed up to
-// kNormSmem once per process.
-const void* kernel_for(int bf16, int vec, cudaError_t* err) {
-  static std::once_flag once[4];
-  const void* k = bf16 ? (vec ? kernel_ptr<__nv_bfloat16, 8>() : kernel_ptr<__nv_bfloat16, 1>())
-                       : (vec ? kernel_ptr<float, 4>() : kernel_ptr<float, 1>());
-  static cudaError_t set[4];
-  const int i = 2 * (bf16 != 0) + (vec != 0);
+// The kernel of (dtype, path, pre_bias or none), its dynamic shared memory
+// allowed up to kNormSmem once per process.
+const void* kernel_for(int bf16, int vec, int bias, cudaError_t* err) {
+  static std::once_flag once[8];
+  const void* k = bf16 ? (vec ? kernel_ptr<__nv_bfloat16, 8>(bias) : kernel_ptr<__nv_bfloat16, 1>(bias))
+                       : (vec ? kernel_ptr<float, 4>(bias) : kernel_ptr<float, 1>(bias));
+  static cudaError_t set[8];
+  const int i = 4 * (bias != 0) + 2 * (bf16 != 0) + (vec != 0);
   std::call_once(once[i], [&] {
     set[i] = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kNormSmem);
   });
@@ -308,26 +358,33 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // Blocks of the (dtype, path) kernel one SM holds at the largest dynamic
 // shared memory a plan may give it (the plan's grid is at most this times
-// the SM count); a negative CUDA error code on failure.
+// the SM count), the fewer of its forms with and without a pre_bias; a
+// negative CUDA error code on failure.
 extern "C" int groupnorm_film_silu_blocks_per_sm(int bf16, int vec) {
   using namespace lfdm;
-  cudaError_t err;
-  const void* k = kernel_for(bf16, vec, &err);
-  if (err != cudaSuccess) return -(int)err;
-  int n = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kNormThreads, kNormSmem);
-  return err != cudaSuccess ? -(int)err : n;
+  int least = 0;
+  for (int bias = 0; bias < 2; ++bias) {
+    cudaError_t err;
+    const void* k = kernel_for(bf16, vec, bias, &err);
+    if (err != cudaSuccess) return -(int)err;
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kNormThreads, kNormSmem);
+    if (err != cudaSuccess) return -(int)err;
+    least = bias == 0 || n < least ? n : least;
+  }
+  return least;
 }
 
 extern "C" int groupnorm_film_silu_smem_limit() { return lfdm::kNormSmem; }
 
-// tables: bit 0 gamma, bit 1 beta, bit 2 scale, bit 3 shift is bf16 (else fp32)
+// tables: bit 0 gamma, bit 1 beta, bit 2 scale, bit 3 shift, bit 4 pre_bias is bf16
+// (else fp32); pre_bias may be null.
 extern "C" int launch_groupnorm_film_silu(
     int bf16, int vec, const void* x, void* y, const void* gamma, const void* beta,
-    const void* scale, const void* shift, int tables, long long gamma_sc, long long beta_sc,
-    long long scale_sb, long long scale_sc, long long shift_sb, long long shift_sc,
-    void* partial, int B, long long N, int C, int G, int blocks, long long rows,
-    long long hold_rows, int smem, float eps, void* stream) {
+    const void* scale, const void* shift, const void* pre_bias, int tables, long long gamma_sc,
+    long long beta_sc, long long scale_sb, long long scale_sc, long long shift_sb,
+    long long shift_sc, long long pre_sc, void* partial, int B, long long N, int C, int G,
+    int blocks, long long rows, long long hold_rows, int smem, float eps, void* stream) {
   using namespace lfdm;
   const int esz = bf16 ? 2 : 4, VEC = vec ? 16 / esz : 1;
   if (B < 1 || N < 1 || C < 1 || G < 1 || C % G != 0 || C > kMaxCols * kNormThreads ||
@@ -340,12 +397,13 @@ extern "C" int launch_groupnorm_film_silu(
   if (vec && (C % VEC != 0 || (C / G) % VEC != 0 || !aligned16(x) || !aligned16(y)))
     return cudaErrorInvalidValue;
   cudaError_t err;
-  const void* k = kernel_for(bf16, vec, &err);
+  const void* k = kernel_for(bf16, vec, pre_bias != nullptr, &err);
   if (err != cudaSuccess) return err;
   Table tg{gamma, 0, gamma_sc, tables & 1}, tb{beta, 0, beta_sc, (tables >> 1) & 1};
   Table ts{scale, scale_sb, scale_sc, (tables >> 2) & 1}, th{shift, shift_sb, shift_sc, (tables >> 3) & 1};
+  Table tp{pre_bias, 0, pre_sc, (tables >> 4) & 1};
   int nb = blocks;
-  void* args[] = {&x, &y, &tg, &tb, &ts, &th, &partial, &N, &C, &G, &nb,
+  void* args[] = {&x, &y, &tg, &tb, &ts, &th, &tp, &partial, &N, &C, &G, &nb,
                   &rows, &hold_rows, &eps};
   err = cudaLaunchCooperativeKernel(k, dim3((unsigned)(B * blocks)), dim3(kNormThreads), args,
                                     (size_t)smem, static_cast<cudaStream_t>(stream));

@@ -44,7 +44,10 @@ def build_unet(lfae_cfg: LFAEConfig, cfg: DiffusionConfig, training: bool,
                fused_norm: bool | None = None) -> Unet3D:
     """The denoiser of a config, freshly initialised, on the CPU, in the
     form `cfg.temporal_attn_impl` names (`"auto"`: `pallas2` for training,
-    `pallas3` for serving; :func:`models.unet3d.resolve_attn_impl`)."""
+    `pallas3` for serving; :func:`models.unet3d.resolve_attn_impl`).
+    `fused_norm` None gives serving (`training=False`, forward-only) the
+    fused Block chain, `ops.norm.groupnorm_film_silu`, and training the
+    differentiable unfused one; True or False builds that form."""
     g = lfae_cfg.generator
     return Unet3D(
         dim=cfg.dim, cond_dim=cfg.cond_dim, dim_mults=tuple(cfg.dim_mults),
@@ -54,7 +57,7 @@ def build_unet(lfae_cfg: LFAEConfig, cfg: DiffusionConfig, training: bool,
         dtype=_DTYPES[cfg.compute_dtype],
         fea_channels=min(g.max_features, g.block_expansion * (2 ** g.num_down_blocks)),
         temporal_attn_impl=resolve_attn_impl(cfg.temporal_attn_impl, training),
-        fused_norm=fused_norm,
+        fused_norm=not training if fused_norm is None else fused_norm,
     )
 
 
@@ -69,9 +72,10 @@ class FlowDiffusion(nn.Module):
     the config's `temporal_attn_impl` names (`xla`, `pallas`, `pallas2`,
     `pallas3`); `"auto"` gives serving the forward-only `pallas3` form and
     training the differentiable `pallas2` form
-    (:func:`models.unet3d.resolve_attn_impl`). Training needs a
-    differentiable form (`pallas2` or `xla`): the kernels of the others
-    raise when a gradient is asked of them on the card."""
+    (:func:`models.unet3d.resolve_attn_impl`). Serving's Blocks run fused
+    (`ops.norm.groupnorm_film_silu`), training's unfused (:func:`build_unet`).
+    Training needs a differentiable form (`pallas2` or `xla`): the kernels
+    of the others raise when a gradient is asked of them on the card."""
 
     def __init__(self, lfae_cfg: LFAEConfig, cfg: DiffusionConfig, device=None,
                  training: bool = False):

@@ -66,7 +66,10 @@ class Conv2d(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> tuple:
+        """`(y, after)`: the convolution in the compute dtype, with the bias
+        that goes inside it, and the bias still to add after it (None in
+        fp32; `split_bias`)."""
         dt = _compute_dtype(self.dtype, x)
         x, padding = x.to(dt), self.padding
         if self.space is not None:
@@ -76,6 +79,10 @@ class Conv2d(nn.Module):
         inside, after = split_bias(self.bias, dt)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(dt), inside,
                      stride=self.stride, padding=padding).permute(0, 2, 3, 1)
+        return y, after
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, after = self.product(x)
         return y if after is None else y + after
 
 

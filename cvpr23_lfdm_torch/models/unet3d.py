@@ -18,7 +18,11 @@ package, chosen by `temporal_attn_impl` and named as there:
   linear attention unfused.
 
 `fused_norm=True` (any form, forward-only) makes every `Block` one
-:func:`ops.norm.groupnorm_film_silu` after its convolution.
+:func:`ops.norm.groupnorm_film_silu` after its convolution's product (the
+bf16 conv bias folded in). The UNet's default is `False`, as in the JAX
+model, where XLA fuses the chain into its neighbours on a TPU; eager
+PyTorch on a GPU fuses nothing, so the serving entry points build it
+fused (`diffusion/flow_diffusion.py::build_unet`).
 
 All forms have the same parameters, so one state dict loads into each. In
 fp32 they agree to ~1e-4; in bf16 they round at different points.
@@ -363,10 +367,16 @@ class Conv2plus1d(nn.Module):
         super().__init__()
         self.conv = Conv2d(cin, cout, k, bias=bias, dtype=dtype)
 
-    def forward(self, x):
+    def product(self, x) -> tuple:
+        """`(y, after)` of :meth:`Conv2d.product`: the convolution and the
+        bias still to add after it."""
         b, f, h, w, c = x.shape
-        y = self.conv(copy_to_model(x, self.tp).reshape(b * f, h, w, c))
-        return y.reshape(b, f, h, w, -1)
+        y, after = self.conv.product(copy_to_model(x, self.tp).reshape(b * f, h, w, c))
+        return y.reshape(b, f, h, w, -1), after
+
+    def forward(self, x):
+        y, after = self.product(x)
+        return y if after is None else y + after
 
 
 class GroupNorm(nn.Module):
@@ -399,8 +409,10 @@ class GroupNorm(nn.Module):
 
 class Block(nn.Module):
     """conv(1,3,3) -> GroupNorm(8) -> FiLM -> SiLU. With `fused_norm` the
-    chain after the convolution is one forward-only
-    :func:`ops.norm.groupnorm_film_silu` on the GroupNorm's parameters."""
+    chain after the convolution's product is one forward-only
+    :func:`ops.norm.groupnorm_film_silu` on the GroupNorm's parameters,
+    which also adds the bias that a bf16 convolution adds after its rounded
+    product (`pre_bias`; in fp32 the bias stays inside the convolution)."""
 
     def __init__(self, cin: int, cout: int, groups: int = 8, dtype=torch.float32,
                  fused_norm: bool = False):
@@ -411,11 +423,11 @@ class Block(nn.Module):
 
     def forward(self, x, scale_shift=None):
         if self.fused_norm:
-            x = self.proj(x)
+            x, pre_bias = self.proj.product(x)
             scale, shift = scale_shift if scale_shift is not None else (None, None)
             groups, weight, bias = self.norm.affine()
             return norm_ops.groupnorm_film_silu(
-                x, weight, bias, scale, shift, groups=groups, eps=self.norm.eps)
+                x, weight, bias, scale, shift, groups=groups, eps=self.norm.eps, pre_bias=pre_bias)
         x = self.norm(self.proj(x))
         if scale_shift is not None:
             scale, shift = scale_shift

@@ -1,13 +1,17 @@
-"""Fused GroupNorm + FiLM + SiLU of the UNet's `Block` (serving forward).
+"""Fused conv bias + GroupNorm + FiLM + SiLU of the UNet's `Block` (serving
+forward).
 
 Counterpart of `cvpr23_lfdm_tpu/ops/norm_pallas.py`:
 :func:`groupnorm_film_silu` replaces the Pallas `groupnorm_film_silu`
 (`_kernel`): `silu(GroupNorm(x) * (scale + 1) + shift)` with fp32 statistics
-per (batch, group) over (F, H, W, C/groups), `var = E[x²] − mean²`, the
-affine parameters and the optional FiLM `[B, C]` folded into one multiply
-and one add per channel, the result in x's dtype
-(`csrc/groupnorm_film_silu.cu`). Forward-only, as in the JAX package: the
-training form keeps the unfused `GroupNorm`.
+per (batch, group) over (F, H, W, C/groups), `var = max(E[x²] − mean², 0)`
+(clamped as flax's GroupNorm), the affine parameters and the optional FiLM
+`[B, C]` folded into one multiply and one add per channel, the result in x's
+dtype (`csrc/groupnorm_film_silu.cu`). An optional `pre_bias [C]` is the
+conv bias that a bf16 `Block` adds after its rounded product
+(`models/blocks.py::split_bias`): the function then normalises
+`round(x + pre_bias)` in x's dtype, which is that add. Forward-only, as in
+the JAX package: the training form keeps the unfused `GroupNorm`.
 
 On the H100 the function is bound by bytes (x read, y written). The TPU
 kernel takes one grid step per batch entry with the whole activation in
@@ -93,7 +97,7 @@ def _sm_count(index: int) -> int:
 
 
 _PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_LAUNCH_ARGS = ([_INT] * 2 + [_PTR] * 6 + [_INT] + [_LL] * 6 + [_PTR]
+_LAUNCH_ARGS = ([_INT] * 2 + [_PTR] * 7 + [_INT] + [_LL] * 7 + [_PTR]
                 + [_INT, _LL, _INT, _INT, _INT, _LL, _LL, _INT, ctypes.c_float, _PTR])
 
 
@@ -123,16 +127,18 @@ def _partials(device, stream: int, n: int) -> torch.Tensor:
 
 
 def groupnorm_film_silu_plain(x, gamma, beta, scale=None, shift=None,
-                              groups: int = 8, eps: float = 1e-5):
+                              groups: int = 8, eps: float = 1e-5, pre_bias=None):
     """Plain version of :func:`groupnorm_film_silu` (same arguments)."""
     b, c = x.shape[0], x.shape[-1]
     xf = x.float().reshape(b, -1, c)
+    if pre_bias is not None:  # the conv's bias add, rounded to x's dtype as it rounds
+        xf = (xf + pre_bias.float()).to(x.dtype).float()
     n = xf.shape[1]
     cnt = float(n * (c // groups))
     s_g = xf.sum(dim=1).reshape(b, groups, c // groups).sum(dim=-1)
     ss_g = (xf * xf).sum(dim=1).reshape(b, groups, c // groups).sum(dim=-1)
     mean_g = s_g / cnt
-    var_g = ss_g / cnt - mean_g * mean_g
+    var_g = (ss_g / cnt - mean_g * mean_g).clamp_min(0.0)
     inv_g = torch.rsqrt(var_g + eps)
     mean_c = mean_g.repeat_interleave(c // groups, dim=1)  # [B, C]
     inv_c = inv_g.repeat_interleave(c // groups, dim=1)
@@ -147,23 +153,26 @@ def groupnorm_film_silu_plain(x, gamma, beta, scale=None, shift=None,
 
 
 def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None,
-                        groups: int = 8, eps: float = 1e-5):
-    """`silu(GroupNorm(x) * (scale + 1) + shift)`.
+                        groups: int = 8, eps: float = 1e-5, pre_bias=None):
+    """`silu(GroupNorm(round(x + pre_bias)) * (scale + 1) + shift)`.
 
     Args:
       x: `[B, F, H, W, C]`, bf16 or fp32; gamma, beta: `[C]` GroupNorm
         affine parameters.
       scale, shift: optional FiLM conditioning of `B * C` values each
         (`[B, C]`, or the UNet's `[B, 1, 1, 1, C]` halves of one `[..., 2C]`
-        tensor; broadcast over F, H, W), both or neither. The tables may be
-        fp32 or bf16 at any strides; the kernel reads them as they are.
+        tensor; broadcast over F, H, W), both or neither.
+      pre_bias: optional `[C]` added to x first, the sum rounded to x's
+        dtype (a bf16 conv's bias, added after its rounded product).
+      The tables may be fp32 or bf16 at any strides; the kernel reads them
+      as they are.
 
     Returns `[B, F, H, W, C]` in x's dtype. CPU tensors take the plain
     version; CUDA tensors launch `csrc/groupnorm_film_silu.cu` or raise
     (also when a gradient is asked: the kernel is forward-only).
     """
     if x.device.type == "cpu":
-        return groupnorm_film_silu_plain(x, gamma, beta, scale, shift, groups, eps)
+        return groupnorm_film_silu_plain(x, gamma, beta, scale, shift, groups, eps, pre_bias)
     name = "groupnorm_film_silu"
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {x.device}")
@@ -177,17 +186,18 @@ def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None,
         raise ValueError(f"{name}: C={c} with {groups} groups (C <= {_MAX_CHANNELS})")
     if (scale is None) != (shift is None):
         raise ValueError(f"{name}: scale and shift come together")
-    if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
-        raise ValueError(f"{name}: gamma/beta shapes {tuple(gamma.shape)} {tuple(beta.shape)}")
+    pre = () if pre_bias is None else (pre_bias,)
+    if any(tuple(t.shape) != (c,) for t in (gamma, beta, *pre)):
+        raise ValueError(f"{name}: gamma/beta/pre_bias shapes {[tuple(t.shape) for t in (gamma, beta, *pre)]}")
     film = ()
     if scale is not None:
         if scale.numel() != b * c or shift.numel() != b * c:
             raise ValueError(f"{name}: scale/shift must hold [B, C] = {(b, c)} values")
         film = (scale, shift)
-    _build.require_no_grad(name, x, gamma, beta, *film)
+    _build.require_no_grad(name, x, gamma, beta, *film, *pre)
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
-    if any(t.device != x.device for t in (gamma, beta, *film)):
+    if any(t.device != x.device for t in (gamma, beta, *film, *pre)):
         raise ValueError(f"{name}: arguments on different devices")
     bf16, esz, dev = x.dtype == torch.bfloat16, x.element_size(), x.device
     vec = norm_vec(c, groups, esz, x.data_ptr())
@@ -197,22 +207,23 @@ def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None,
     # table laid out [B, ..., C] (the UNet's [B, 1, 1, 1, C] halves) is read at its
     # own (batch, channel) strides; any other layout of its B * C values as [B, C]
     film = tuple(t if t.shape[0] == b and t.shape[-1] == c else t.reshape(b, c) for t in film)
-    tables = (gamma, beta, *film)
     kinds = 0
-    for i, t in enumerate(tables):
+    for i, t in ((0, gamma), (1, beta), *zip((2, 3), film), *zip((4,), pre)):
         if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name}: gamma/beta/scale/shift must be float32 or bfloat16")
+            raise TypeError(f"{name}: gamma/beta/scale/shift/pre_bias must be float32 or bfloat16")
         kinds |= (t.dtype == torch.bfloat16) << i
     strides = [gamma.stride(0), beta.stride(0)]
     for t in film:
         strides += [t.stride(0), t.stride(-1)]
-    strides += [0] * (6 - len(strides))
+    strides += [0] * (6 - len(strides)) + [pre_bias.stride(0) if pre else 0]
+    ptrs = [t.data_ptr() for t in (gamma, beta)]
+    ptrs += [t.data_ptr() for t in film] if film else [None, None]
+    ptrs += [pre_bias.data_ptr() if pre else None]
     out = torch.empty_like(x)
     stream = _build.stream(dev)
     partial = _partials(dev, stream.value, b * plan.blocks * groups * 2)
     fn = _build.bind("groupnorm_film_silu", "launch_groupnorm_film_silu", _LAUNCH_ARGS)
-    code = fn(int(bf16), int(plan.vec > 1), x.data_ptr(), out.data_ptr(),
-              *(t.data_ptr() for t in tables), *((None, None) if not film else ()), kinds,
+    code = fn(int(bf16), int(plan.vec > 1), x.data_ptr(), out.data_ptr(), *ptrs, kinds,
               *strides, partial.data_ptr(), b, n, c, groups, plan.blocks, plan.rows,
               plan.hold_rows, plan.smem, eps, stream)
     _build.check(_build.load("groupnorm_film_silu"), "launch_groupnorm_film_silu", code)

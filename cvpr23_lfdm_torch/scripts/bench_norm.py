@@ -5,14 +5,15 @@ width (`NORM_SHAPES`: F = 40, bf16), with and without FiLM, at each batch
 size: the device time per call of `ops.norm.groupnorm_film_silu`
 (torch.profiler, the kernels alone, over 10 calls), the device launches
 per call (every device activity of the call, casts and copies included),
-and the call time (CUDA events around the function, its host work
-included); then the sums over one eval. The FiLM pair goes in as the UNet
-passes it: the bf16 halves of one `[B, 1, 1, 1, 2C]` tensor. The script
-uses only the public function and the package's timing helpers, so it can
-time another checkout of the package: `PYTHONPATH=<checkout> python
-<this file>`.
+the call time (CUDA events around the function, its host work included),
+the plain version's call time, and the byte bound (x read once, y written
+once, at 3.35 TB/s); then the sums over one eval and the device time's
+share of the bound. The arguments go in as the bf16 UNet passes them: the
+FiLM pair as the halves of one `[B, 1, 1, 1, 2C]` tensor, the conv bias
+as `pre_bias`. The device time is read once more without the bias
+(`device_ms_no_bias`), the form an fp32 Block runs.
 
-Usage: python -m cvpr23_lfdm_torch.scripts.bench_norm [--batch 1 8]
+Usage: python -m cvpr23_lfdm_torch.scripts.bench_norm [--batch 1 8 32]
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ F = 40
 NORM_SHAPES = {(32, 64): (4, 8), (16, 128): (2, 2), (16, 64): (2, 2), (8, 256): (2, 2),
                (8, 128): (2, 2), (4, 512): (4, 4), (4, 256): (2, 2)}
 BLOCKS_PER_EVAL = 40  # 20 ResnetBlocks of two Blocks each
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
 def make_args(b: int, h: int, c: int, film: bool, device, seed: int = 0):
@@ -45,6 +47,18 @@ def make_args(b: int, h: int, c: int, film: bool, device, seed: int = 0):
     if film:
         ss = torch.randn(b, 1, 1, 1, 2 * c, generator=g).to(device, torch.bfloat16).chunk(2, dim=-1)
     return (x, gamma, beta, *ss)
+
+
+def pre_bias(c: int, device, seed: int = 0):
+    """A seeded bf16 conv bias `[C]`, as a bf16 Block's convolution leaves
+    it to add after its rounded product."""
+    g = torch.Generator().manual_seed(seed + 1)
+    return (0.5 * torch.randn(c, generator=g)).to(device, torch.bfloat16)
+
+
+def bound_ms(b: int, h: int, c: int, esz: int = 2) -> float:
+    """The least time of one call: x read once and y written once."""
+    return 2 * b * F * h * h * c * esz / HBM_BYTES_PER_S * 1e3
 
 
 def device_reading(call, reps: int = 10, kernel: str = "groupnorm_film_silu_kernel"):
@@ -84,23 +98,30 @@ def run(batches=(1, 8), device="cuda") -> list:
     batch with the sums over one eval."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_norm reads device time; needs the card")
+    fn, plain = norm_ops.groupnorm_film_silu, norm_ops.groupnorm_film_silu_plain
+    keys = ("device_ms", "device_ms_no_bias", "call_ms", "plain_ms", "bound_ms", "launches_per_call")
     lines = []
     with torch.no_grad():
         for b in batches:
-            per_eval, launches = 0.0, 0.0
+            per_eval = dict.fromkeys(keys, 0.0)
             for (h, c), counts in NORM_SHAPES.items():
                 for film, calls in zip((True, False), counts):
                     args = make_args(b, h, c, film, device)
-                    call = lambda: norm_ops.groupnorm_film_silu(*args)
+                    bias = pre_bias(c, device)
+                    call = lambda: fn(*args, pre_bias=bias)
                     ms, n, other = device_reading(call)
-                    lines.append({"batch": b, "shape": [b, F, h, h, c], "film": film,
-                                  "calls_per_eval": calls, "device_ms": ms, "launches_per_call": n,
-                                  "other_launches_per_call": other,
-                                  "call_ms": time_fn(call)["median_ms"]})
-                    per_eval += calls * ms
-                    launches += calls * n
-            lines.append({"batch": b, "device_ms_per_eval": per_eval,
-                          "launches_per_eval": launches, "calls_per_eval": BLOCKS_PER_EVAL})
+                    line = {"batch": b, "shape": [b, F, h, h, c], "film": film, "calls_per_eval": calls,
+                            "device_ms": ms, "device_ms_no_bias": device_reading(lambda: fn(*args))[0],
+                            "launches_per_call": n, "other_launches_per_call": other,
+                            "call_ms": time_fn(call)["median_ms"],
+                            "plain_ms": time_fn(lambda: plain(*args, pre_bias=bias))["median_ms"],
+                            "bound_ms": bound_ms(b, h, c)}
+                    lines.append(line)
+                    for k in keys:
+                        per_eval[k] += calls * line[k]
+            lines.append({"batch": b, **{f"{k.removesuffix('_per_call')}_per_eval": v for k, v in per_eval.items()},
+                          "bound_share_pct": 100.0 * per_eval["bound_ms"] / per_eval["device_ms"],
+                          "calls_per_eval": BLOCKS_PER_EVAL})
     return lines
 
 

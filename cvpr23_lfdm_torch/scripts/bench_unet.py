@@ -84,7 +84,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--size", type=int, default=32)
     ap.add_argument("--fused-norm", default=None, type=_flag,
-                    help="true: every Block is one GroupNorm+FiLM+SiLU kernel")
+                    help="true: every Block is one GroupNorm+FiLM+SiLU kernel; false: the unfused "
+                         "chain; default: serving's form (fused)")
     ap.add_argument("--trace", action="store_true",
                     help="profile one eval and print the top device kernels")
     ap.add_argument("--top", type=int, default=30)
@@ -99,7 +100,7 @@ def main() -> None:
         if args.trace and device.type == "cuda":
             for r in trace(unet, inputs, args.top):
                 print(f"  {r['device_ms']:8.3f}  x{r['count']:<4d} {r['name']}")
-        emit({"batch": b, "attn": args.attn, "fused_norm": bool(args.fused_norm),
+        emit({"batch": b, "attn": args.attn, "fused_norm": unet.fused_norm,
               "dtype": args.dtype, "unet_eval_ms": res["median_ms"],
               "ms_per_sample": res["median_ms"] / b, "clock": res["clock"],
               "launches_per_eval": res["launches_per_eval"], "card": card_line(device)})

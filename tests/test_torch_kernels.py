@@ -981,6 +981,53 @@ def test_bench_norm_reads_the_unet_shapes():
             bench_norm.run()
 
 
+# (H, C): one Block shape of each resolution of a B=32 serving eval
+_B32_SHAPES = [(32, 64), (16, 128), (8, 256), (4, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", _B32_SHAPES)
+def test_groupnorm_film_silu_kernel_with_pre_bias_at_the_b32_serving_shapes(dev, h, c):
+    """bf16, the FiLM pair and the bf16 conv bias as the serving UNet passes
+    them, at B=32 (at 32² most rows are read twice): one device launch per
+    call, the same bits again, within the card's tolerance of the plain
+    version."""
+    from cvpr23_lfdm_torch.scripts.bench_norm import pre_bias
+
+    args = _norm_args(dev, torch.bfloat16, 32, 40, h, c, "unet")
+    bias = pre_bias(c, dev)
+    call = lambda: N.groupnorm_film_silu(*args, pre_bias=bias)
+    with torch.no_grad():
+        out = call()
+        assert torch.equal(out, call())
+        assert _one_launch(call)
+    _close(out, N.groupnorm_film_silu_plain(*args, pre_bias=bias), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_groupnorm_film_silu_kernel_pre_bias_in_other_layouts_and_a_clamped_variance(dev, dtype):
+    """A pre_bias in fp32 beside either x (the sum rounded to x's dtype), in
+    bf16 at stride 2 and in bf16 one element in (off the 16-byte load of a
+    unit-stride bf16 bias), on the 16-byte path and on the scalar path
+    (C = 24, and a view one element in); and a constant x whose variance
+    may cancel below 0, with and without a pre_bias: finite, as the plain
+    version."""
+    for c, offset in ((128, 0), (24, 0), (128, 1)):
+        args = _norm_args(dev, dtype, 2, 40, 8, c, "unet", offset=offset)
+        wide = 0.5 * torch.randn(2 * c + 1, device=dev)
+        for bias in (wide[:c], wide.to(torch.bfloat16)[: 2 * c : 2], wide.to(torch.bfloat16)[1 : c + 1]):
+            with torch.no_grad():
+                out = N.groupnorm_film_silu(*args, pre_bias=bias)
+            _close(out, N.groupnorm_film_silu_plain(*args, pre_bias=bias), dtype)
+    flat = torch.full((1, 2, 4, 4, 16), 370.1754455566406, device=dev).to(dtype)
+    ones, halves = torch.ones(16, device=dev), 0.5 * torch.ones(16, device=dev)
+    for pre in (None, torch.zeros(16, device=dev)):
+        with torch.no_grad():
+            out = N.groupnorm_film_silu(flat, ones, halves, pre_bias=pre)
+        assert torch.isfinite(out).all()
+
+
 @pytest.mark.cuda
 def test_groupnorm_film_silu_wrapper_checks_arguments(dev):
     x = torch.randn(1, 2, 4, 4, 16, device=dev)
@@ -995,6 +1042,8 @@ def test_groupnorm_film_silu_wrapper_checks_arguments(dev):
         N.groupnorm_film_silu(x.transpose(2, 3), gamma, beta)
     with pytest.raises(ValueError):
         N.groupnorm_film_silu(x[0], gamma, beta)
+    with pytest.raises(ValueError):
+        N.groupnorm_film_silu(x, gamma, beta, pre_bias=torch.zeros(8, device=dev))
     with pytest.raises(RuntimeError, match="forward-only"):
         N.groupnorm_film_silu(x, gamma.requires_grad_(), beta)
 

@@ -184,7 +184,9 @@ def test_resolve_attn_impl():
 
 def test_entry_points_build_the_named_form():
     """`build_unet` (behind `FlowDiffusion`, `apply_bench_ckpt`, `DMTrainer`)
-    honours the config's form: the default `xla` is the einsum form."""
+    honours the config's form: the default `xla` is the einsum form. Its
+    `fused_norm` None builds serving's Blocks fused and training's unfused;
+    an explicit value is that form."""
     import dataclasses
 
     from cvpr23_lfdm_torch.config import DiffusionConfig, LFAEConfig
@@ -198,8 +200,12 @@ def test_entry_points_build_the_named_form():
         cfg = dataclasses.replace(base, temporal_attn_impl=value)
         unet = build_unet(LFAEConfig(), cfg, training)
         assert unet.temporal_attn_impl == want, (value, training)
-        assert unet.mid_temporal_attn.attn.impl == want and unet.fused_norm is False
-    assert build_unet(LFAEConfig(), base, False, fused_norm=True).mid_block1.block1.fused_norm
+        assert unet.mid_temporal_attn.attn.impl == want and unet.fused_norm is (not training)
+        assert unet.mid_block1.block1.fused_norm is (not training)
+    for training in (False, True):
+        for fused in (False, True):
+            unet = build_unet(LFAEConfig(), base, training, fused_norm=fused)
+            assert unet.fused_norm is fused and unet.mid_block1.block1.fused_norm is fused
 
 
 def _unet_case(seed, b, focus):
